@@ -1,11 +1,11 @@
-"""maria_tpu — a TPU-native simulator of ground-based mm/submm telescopes.
+"""maria_tpu — a JAX simulator of ground-based mm/submm telescopes.
 
 Synthesizes time-ordered data (TOD) from correlated atmospheric
 turbulence, the CMB, input sky maps and instrument noise, then maps the
 TODs back onto the sky — with the entire inner loop (turbulence
 synthesis, line-of-sight sampling, bandpass integration, map binning)
-running as jit-compiled JAX/XLA programs on TPU, sharded over device
-meshes for large arrays.
+running as jit-compiled JAX/XLA programs on the accelerator, sharded
+over device meshes for large arrays.
 
 Public API parity with the reference package (maria/__init__.py:12-21).
 """
@@ -39,32 +39,33 @@ def undebug():
     logger.setLevel(logging.WARNING)
 
 
-def _export():
-    """Populate the top-level namespace lazily to keep import light."""
+from .io import fetch, set_cache_dir  # noqa: E402,F401
+from .band import Band, all_bands, get_band  # noqa: E402,F401
+from .array import Array, all_arrays, get_array  # noqa: E402,F401
+from .instrument import Instrument, all_instruments, get_instrument  # noqa: E402,F401
+from .site import Site, all_regions, all_sites, get_site  # noqa: E402,F401
+from .plan import Plan, Planner, all_plans, get_plan  # noqa: E402,F401
+from .map import all_maps  # noqa: E402,F401
+from .map.transfer import (  # noqa: E402,F401
+    TransferFunction,
+    compute_transfer_function,
+    plot_transfer_function,
+)
+from .sim import Simulation  # noqa: E402,F401
+from .tod import TOD  # noqa: E402,F401
+# an extension beyond the reference surface: bounded-memory long
+# observations (reference: dask-lazy TOD fields, tod/tod.py:63)
+from .ops.streaming_exec import StreamingExecutor  # noqa: E402,F401
 
 
-# NOTE: incremental bring-up guard — will become unconditional once all
-# subpackages land (tracked in PROGRESS).
-try:
-    from .io import fetch, set_cache_dir  # noqa: E402,F401
-    from .band import Band, all_bands, get_band  # noqa: E402,F401
-    from .array import Array, all_arrays, get_array  # noqa: E402,F401
-    from .instrument import Instrument, all_instruments, get_instrument  # noqa: E402,F401
-    from .site import Site, all_regions, all_sites, get_site, site_data  # noqa: E402,F401
-    from .plan import Plan, Planner, all_plans, get_plan  # noqa: E402,F401
-    from .map import all_maps  # noqa: E402,F401
-    from .map.transfer import (  # noqa: E402,F401
-        TransferFunction,
-        compute_transfer_function,
-        plot_transfer_function,
-    )
-    from .sim import Simulation  # noqa: E402,F401
-    from .tod import TOD  # noqa: E402,F401
-    # TPU-native extension beyond the reference surface: bounded-memory
-    # long observations (reference: dask-lazy TOD fields, tod/tod.py:63)
-    from .ops.streaming_exec import StreamingExecutor  # noqa: E402,F401
-except ImportError as _e:  # pragma: no cover
-    logger.debug(f"partial import during bring-up: {_e}")
+def __getattr__(name):
+    # the reference's site table is a DataFrame, built on first use
+    # since pandas is optional
+    if name == "site_data":
+        from .site import _build_site_data
+
+        return _build_site_data()
+    raise AttributeError(name)
 
 __all__ = [
     "Angle",
@@ -96,6 +97,5 @@ __all__ = [
     "get_site",
     "plot_transfer_function",
     "set_cache_dir",
-    "site_data",
     "undebug",
 ]

@@ -1,6 +1,6 @@
 """Detector arrays (reference: maria/array/array.py:111-660).
 
-An Array is a pandas table of per-detector properties (focal-plane
+An Array is a column table of per-detector properties (focal-plane
 offsets xi/eta, polarization angle gamma, band, aperture, baselines) plus
 its BandList. The table is host-side; the sim engine extracts static jnp
 arrays (offsets, Mueller weights, band masks) from it at program-build
@@ -15,22 +15,22 @@ import os
 import uuid
 
 import numpy as np
-import pandas as pd
 
 from ..band import Band, BandList, parse_band
 from ..beam import compute_angular_fwhm
-from ..io import flatten_config, read_yaml
+from ..io import flatten_config, read_json
 from ..units import Angle, Quantity
 from ..utils import compute_diameter
+from ..utils.table import Table, concat, read_csv
 from .generation import PACKINGS, SHAPES, generate_2d_pattern  # noqa: F401
 
 here = os.path.dirname(__file__)
 logger = logging.getLogger("maria_tpu")
 
 ARRAY_CONFIGS = {}
-for path in sorted(glob.glob(f"{here}/configs/*.yml")):
+for path in sorted(glob.glob(f"{here}/configs/*.json")):
     key = os.path.splitext(os.path.basename(path))[0]
-    ARRAY_CONFIGS[key] = read_yaml(path)
+    ARRAY_CONFIGS[key] = read_json(path)
 ARRAY_CONFIGS = flatten_config(ARRAY_CONFIGS)
 
 all_arrays = sorted(ARRAY_CONFIGS)
@@ -70,7 +70,7 @@ def get_array(key: str, **kwargs) -> "Array":
 
 
 class Array:
-    def __init__(self, name: str, dets: pd.DataFrame, bands: BandList):
+    def __init__(self, name: str, dets: Table, bands: BandList):
         self.name = name
         self.dets = dets.reset_index(drop=True)
         self.dets["array_name"] = name
@@ -98,10 +98,10 @@ class Array:
             file = c.pop("file")
             packaged = os.path.join(here, file)
             path = packaged if os.path.exists(packaged) else file
-            table = pd.read_csv(path)
+            table = read_csv(path)
             for col in table.columns:
                 if col not in ("pad", "det_index") and not col.startswith("Unnamed"):
-                    c.setdefault(col, table[col].values)
+                    c.setdefault(col, table[col])
 
         bands = BandList([parse_band(b) for b in c.pop("bands")]) if "bands" in c else None
         if bands is None and "band" in c:
@@ -179,7 +179,7 @@ class Array:
             )
 
         n = len(offsets)
-        dets = pd.DataFrame(
+        dets = Table(
             {
                 "base_det_index": np.arange(n),
                 "xi": offsets[:, 0],
@@ -208,7 +208,7 @@ class Array:
             other = dets.copy()
             other["gamma"] = (dets.gamma + np.pi / 2) % np.pi
             other["pol_label"] = "B"
-            dets = pd.concat([dets, other], ignore_index=True)
+            dets = concat([dets, other])
         else:
             dets["gamma"] = np.nan
             dets["pol_label"] = "none"
@@ -229,7 +229,7 @@ class Array:
                 bd["band_name"] = band.name
                 bd["time_constant"] = band.time_constant
                 band_dets.append(bd)
-            dets = pd.concat(band_dets, ignore_index=True)
+            dets = concat(band_dets)
         dets = dets.sort_values(["band_name", "base_det_index"], ignore_index=True)
         return cls(name=name, dets=dets, bands=bands)
 
@@ -248,7 +248,7 @@ class Array:
     def __getattr__(self, attr):
         dets = self.__dict__.get("dets")
         if dets is not None and attr in dets.columns:
-            return dets[attr].values
+            return dets[attr]
         raise AttributeError(attr)
 
     def __getitem__(self, key):
@@ -273,7 +273,7 @@ class Array:
     def mask(self, **kwargs) -> np.ndarray:
         mask = np.ones(self.n, dtype=bool)
         for key, value in kwargs.items():
-            mask &= self.dets[key].values == value
+            mask &= self.dets[key] == value
         return mask
 
     def one_detector_from_each_band(self) -> "Array":
@@ -293,7 +293,7 @@ class Array:
     # -- physics ----------------------------------------------------------------
     @property
     def offsets(self) -> np.ndarray:
-        return np.stack([self.dets.xi.values, self.dets.eta.values], axis=-1)
+        return np.stack([self.dets.xi, self.dets.eta], axis=-1)
 
     @property
     def field_of_view(self) -> Angle:
@@ -404,7 +404,7 @@ class ArrayList:
         self.arrays = list(arrays)
 
     def combine(self) -> Array:
-        dets = pd.concat([a.dets for a in self.arrays], ignore_index=True)
+        dets = concat([a.dets for a in self.arrays])
         bands = []
         seen = set()
         for a in self.arrays:

@@ -1,6 +1,6 @@
 """FFT spectral synthesis of Matérn turbulence fields.
 
-This is the TPU-native default path for turbulence generation: instead of
+This is the default path for turbulence generation: instead of
 the reference's sequential conditional-Gaussian extrusion (reference
 maria/atmosphere/process.py:191-209, an inherently serial loop), each
 layer's screen is drawn *at once* as a stationary Gaussian random field
@@ -67,11 +67,10 @@ def white_rfft2_spectrum(key, batch, ny: int, nx: int):
 def good_fft_size(n: int) -> int:
     """Smallest m * 2^k >= n with odd part m in {1, 3, 5, 9}.
 
-    TPU XLA FFTs are fast only when the length's odd part is tiny:
-    measured on v5e, n=3072 (3*2^10) runs ~25x faster than n=3000
-    (2^3*3*5^3). Restricting the odd factor to <=9 keeps padding
-    overhead <=12.5% over the next power of two while staying on the
-    fast path.
+    FFT libraries are fastest when the length's odd part is tiny.
+    Restricting the odd factor to <=9 keeps padding overhead <=12.5%
+    over the next power of two; the series are stationary, so callers
+    truncate the padded result.
     """
     n = max(int(n), 16)
     best = 1 << (n - 1).bit_length()

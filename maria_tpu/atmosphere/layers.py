@@ -10,7 +10,8 @@ from __future__ import annotations
 import logging
 
 import numpy as np
-import pandas as pd
+
+from ..utils.table import Table
 
 logger = logging.getLogger("maria_tpu")
 
@@ -41,7 +42,7 @@ def generate_layers(
     pwv_rms_frac: float = 3e-2,
     n_layers: int = None,
     min_height: float = None,
-) -> pd.DataFrame:
+) -> Table:
     """Layer table. The model is implicitly parameterized at the minimum
     scan elevation."""
     min_res = min_res or MIN_RES[mode]
@@ -93,7 +94,7 @@ def generate_layers(
     h_centers = (h_boundaries[1:] + h_boundaries[:-1]) / 2
 
     weather_values = weather(altitude=float(site.altitude.m) + h_centers)
-    layers = pd.DataFrame(weather_values)
+    layers = Table(weather_values)
     layers.insert(0, "process_index", process_index)
     layers.insert(1, "h", h_centers)
     layers.insert(2, "dh", np.diff(h_boundaries))
@@ -110,7 +111,7 @@ def generate_layers(
     layers["total_water"] = total_water
 
     # distribute the total pwv variance across layers by the boundary-layer profile
-    rel_var = boundary_layer_profile(layers.h.values) ** 2
+    rel_var = boundary_layer_profile(layers.h) ** 2
     pwv_var = (weather.pwv * pwv_rms_frac) ** 2 * rel_var / rel_var.sum()
     layers["pwv_rms"] = np.sqrt(pwv_var)
 

@@ -38,15 +38,11 @@ def sampler_bf16() -> bool:
     """Whether the windowed group sampler should run its hat einsums in
     bf16 — a measured NEGATIVE result, default OFF.
 
-    Hypothesis was that the (n_det, chunk, w) hat temporaries' HBM
-    traffic bound the stage, so bf16 operands would halve it. Measured
-    on v5e (AtLAST-50k, 60 s): f32 59.9 ms / bf16 59.9 ms, and time is
-    FLAT across chunk sizes while XLA-counted traffic varies 1.3->6.1 GB
-    (docs/bench/r3-tpu-session3/) — the stage is bound by the VPU hat
-    CONSTRUCTION (~4 ops x (wx+wy) cells x n_samples x n_layers ~ 3e10
-    ops), which no dot-operand precision changes. bf16 output is also
-    bit-identical to f32 on the MXU (default f32 dots already truncate
-    operands to bf16). Kept as an env/arg toggle for re-measurement:
+    Hypothesis was that the (n_det, chunk, w) hat temporaries' memory
+    traffic bound the stage, so bf16 operands would halve it. The stage
+    is bound by the elementwise hat CONSTRUCTION (~4 ops x (wx+wy) cells
+    x n_samples x n_layers), which no dot-operand precision changes
+    (docs/design.md). Kept as an env/arg toggle for re-measurement:
     MARIA_TPU_SAMPLER_BF16=1."""
     import os
 
@@ -179,9 +175,9 @@ def _upsample_linear_indices(a, d: int, n_t: int, aligned: bool):
 def _sample_group_static(stack, group, layer_idxs, qpx, qpy, bs_px, bs_py, t_rel):
     """Static-hat GEMM sampling of the given ScreenGroup layers.
 
-    The scan sampler's measured bound is the per-(sample, layer) VPU hat
-    CONSTRUCTION (~0.1 ns/eval on v5e, invariant to window size /
-    precision / chunk — see `_sample_group_windowed`). But over a TOD the
+    The scan sampler's bound is the per-(sample, layer) elementwise hat
+    CONSTRUCTION (invariant to window size / precision / chunk — see
+    `_sample_group_windowed`). But over a TOD the
     detector offsets are nearly RIGID in the screen frame: writing the
     LOS position as fx[d,t] = u[t] + q[d] (boresight track + per-detector
     offset), the offset drift from field rotation and elevation stretch
@@ -291,19 +287,17 @@ def _sample_group_windowed(
     sum_l pwv_rms_l * sample_l with per-layer temporal decimation.
 
     Fusion: the per-layer path materializes ~6 full (n_det, n_t)
-    coordinate and transpose buffers per layer (~100 GB of HBM traffic
-    for 12 AtLAST layers — measured 230 ms of the 270 ms pwv stage on
-    v5e); here the shared rotated projections (rx, ry) are built once
+    coordinate and transpose buffers per layer (~100 GB of memory
+    traffic for 12 AtLAST layers); here the shared rotated projections
+    (rx, ry) are built once
     and every per-layer quantity lives on a chunk-local tile inside a
     scan body, so the full-size traffic is one read of rx/ry and one
     write of the accumulated output.
 
-    Decimation: an XProf trace of this scan (tools/trace_sampler.py,
-    v5e, AtLAST-50k 60 s) shows each layer's fused scan-body op costs a
-    FIXED ~1.6 ns per (sample, layer) — invariant to window size (1.9x
-    fewer cells: -3%), weight form (hats vs clamped ramps: flat), bf16
-    vs f32 (flat), chunk size (flat at 1.3-6.1 GB XLA-counted traffic).
-    The only lever left is the NUMBER of (sample, layer) evaluations.
+    Decimation: each layer's fused scan-body op costs a fixed amount per
+    (sample, layer), invariant to window size, weight form (hats vs
+    clamped ramps), bf16 vs f32 and chunk size, so the lever is the
+    NUMBER of (sample, layer) evaluations.
     A layer at height h drifts h*d(LOS)/dt + wind per coarse step — at
     AtLAST geometry the lowest layers move ~0.02 cells/step where the
     highest moves ~0.16 — so each layer is sampled on its own
@@ -445,9 +439,8 @@ def _sample_group_scan(
             w_y = jnp.clip(1.0 - jnp.abs(fy[..., None] - iy0[:, None] - ky), 0.0, 1.0)
             if bf16:
                 # bf16 hats/windows halve the dominant (n_det, chunk, w)
-                # HBM traffic and the MXU pass count; f32 accumulate.
-                # Measured a wash on v5e (the scan body is bound by the
-                # fixed per-sample fusion cost) — kept opt-in.
+                # memory traffic; f32 accumulate. The scan body is bound
+                # by the fixed per-sample fusion cost — kept opt-in.
                 tmp = jnp.einsum(
                     "tyx,dtx->dty",
                     wins.astype(jnp.bfloat16),

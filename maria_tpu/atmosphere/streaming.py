@@ -3,7 +3,7 @@
 The reference's AR extrusion "simulates arbitrarily long periods of
 atmospheric evolution" at O(n) cost and O(1) memory
 (maria/atmosphere/process.py:191-209, README.rst:34-36). This module is
-the TPU-native counterpart, two ways:
+the device counterpart, two ways:
 
 - `StreamingExtrusion`: extrude the screen in fixed-size chunks,
   carrying the standing buffer between chunks. The chunked stream is

@@ -20,7 +20,7 @@ import numpy as np
 from ..calibration import Calibration
 from ..constants import MAX_NU_HZ, MIN_NU_HZ, c, k_B
 from ..errors import FrequencyOutOfBoundsError
-from ..io import flatten_config, read_yaml
+from ..io import flatten_config, read_json
 from ..ops import RegularGridInterpolator
 from ..units import Quantity
 
@@ -28,9 +28,9 @@ here = os.path.dirname(__file__)
 logger = logging.getLogger("maria_tpu")
 
 BAND_CONFIGS = {}
-for path in sorted(glob.glob(f"{here}/configs/*.yml")):
+for path in sorted(glob.glob(f"{here}/configs/*.json")):
     tag = os.path.splitext(os.path.basename(path))[0]
-    BAND_CONFIGS[tag] = read_yaml(path)
+    BAND_CONFIGS[tag] = read_json(path)
 BAND_CONFIGS = flatten_config(BAND_CONFIGS)
 
 # units/dtype of the displayable Band fields (reference: band/format.csv)
@@ -333,10 +333,16 @@ def validate_band_config(band: dict):
 
 
 def _build_band_data():
-    import pandas as pd
+    from ..utils import require
+
+    pd = require("pandas")
 
     return pd.DataFrame(BAND_CONFIGS).T.sort_index()
 
 
-# reference parity (band/band.py:35): browsable table of all bands
-band_data = _build_band_data()
+# reference parity (band/band.py:35): browsable table of all bands;
+# a DataFrame view, built on first use since pandas is optional
+def __getattr__(name):
+    if name == "band_data":
+        return _build_band_data()
+    raise AttributeError(name)

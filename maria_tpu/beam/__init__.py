@@ -46,7 +46,7 @@ def construct_beam_filter(fwhm, res, beam_profile=None, buffer=1):
 def gaussian_beam_fft_filter(shape, res_y, res_x, fwhm):
     """Fourier transfer function of a Gaussian beam on a 2-D grid.
 
-    TPU-native counterpart of the reference's separable image-space
+    The device counterpart of the reference's separable image-space
     convolution (beam/__init__.py:56): beam smoothing becomes one
     multiply in Fourier space, fused with any other spectral work.
     """

@@ -1,7 +1,7 @@
 """Covariance kernels and generic math used across the framework.
 
 The Matérn family here matches the reference's kernels (reference
-maria/functions/__init__.py:15-74). The TPU twist: `MaternInterpolator`
+maria/functions/__init__.py:15-74). The device twist: `MaternInterpolator`
 precomputes the log-log blended table *once* on the host and evaluates it
 on device with a pure-jnp interpolation, so covariance evaluation can run
 inside jit over arbitrarily large distance arrays.

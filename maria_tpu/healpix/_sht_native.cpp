@@ -5,7 +5,7 @@
 // three-term recursion in l with libsharp-style power-of-2^60
 // shared-exponent rescaling, verified against the same sympy/scipy
 // oracles (tests/test_sht_spin.py exercises both paths). The device
-// (TPU) path stays in JAX; this exists because the dense CPU scan is
+// path stays in JAX; this exists because the dense CPU scan is
 // rectangle-shaped, while this loop order exploits the m <= l triangle
 // (half the flops), vectorizes across ring blocks (the recursion is
 // loop-carried in l, so SIMD must run across lanes), and threads over

@@ -12,16 +12,16 @@ import numpy as np
 from ..array import Array, ArrayList
 from ..band import Band, BandList  # noqa: F401  (reference: instrument re-exports)
 from ..errors import InvalidInstrumentError
-from ..io import read_yaml
+from ..io import read_json
 from ..units import Quantity
 
 here = os.path.dirname(__file__)
 logger = logging.getLogger("maria_tpu")
 
 INSTRUMENT_CONFIGS = {}
-for path in sorted(glob.glob(f"{here}/configs/*.yml")):
+for path in sorted(glob.glob(f"{here}/configs/*.json")):
     _tag = os.path.splitext(os.path.basename(path))[0]
-    for _key, _cfg in read_yaml(path).items():
+    for _key, _cfg in read_json(path).items():
         # the reference registers instruments under flattened
         # "<file>/<name>" keys (instrument/__init__.py:23-34); accept
         # both the bare name and the flattened form as aliases
@@ -171,10 +171,16 @@ INSTRUMENT_DISPLAY_COLUMNS = ["description"]
 
 
 def _build_instrument_data():
-    import pandas as pd
+    from ..utils import require
+
+    pd = require("pandas")
 
     return pd.DataFrame(INSTRUMENT_CONFIGS).T.reindex(columns=INSTRUMENT_DISPLAY_COLUMNS + ["aliases"])
 
 
-# reference parity (instrument/__init__.py:57): browsable table
-instrument_data = _build_instrument_data()
+# reference parity (instrument/__init__.py:57): browsable table;
+# a DataFrame view, built on first use since pandas is optional
+def __getattr__(name):
+    if name == "instrument_data":
+        return _build_instrument_data()
+    raise AttributeError(name)

@@ -3,10 +3,10 @@
 
 from __future__ import annotations
 
+import json
 import logging
 
 import numpy as np
-import yaml
 
 from .caching import fetch, get_cache_dir, register_generator, set_cache_dir  # noqa: F401
 
@@ -16,7 +16,16 @@ DEFAULT_TIME_FORMAT = "YYYY-MM-DD HH:mm:ss"
 DEFAULT_BAR_FORMAT = "{desc}: |{bar}| {n_fmt}/{total_fmt} {rate_fmt} {elapsed}<{remaining}"
 
 
+def read_json(path: str) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
 def read_yaml(path: str) -> dict:
+    """A user's YAML config; the packaged registries are JSON."""
+    from ..utils import require
+
+    yaml = require("yaml", "pyyaml")
     with open(path) as f:
         return yaml.safe_load(f) or {}
 

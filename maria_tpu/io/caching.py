@@ -3,10 +3,11 @@
 The reference fetches heavy data products (atmospheric spectra, weather
 quantiles, CMB spectra, example maps) from the `maria-data` GitHub repo
 into a local cache (reference: maria/io/caching.py:20-169). This
-framework keeps the same fetch/cache surface but adds a *generator*
-fallback: data products that can be synthesized locally (spectra,
-weather climatology) are generated into the cache when the network is
-unavailable, so the framework is fully functional offline.
+framework keeps the same fetch/cache surface but synthesizes every
+product it has a *generator* for (spectra, example maps, the Planck
+stand-in, the height map) locally, so it never needs the network.
+Downloading the reference's real products is opt-in:
+`allow_downloads(True)`.
 """
 
 from __future__ import annotations
@@ -14,14 +15,17 @@ from __future__ import annotations
 import logging
 import os
 import pathlib
+import tempfile
 import time
 
 logger = logging.getLogger("maria_tpu")
 
-DEFAULT_CACHE_BASE = os.environ.get("MARIA_TPU_CACHE_DIR", "/tmp/maria-tpu-data")
+DEFAULT_CACHE_BASE = os.environ.get(
+    "MARIA_TPU_CACHE_DIR", os.path.join(tempfile.gettempdir(), "maria-tpu-data")
+)
 SOURCE_BASE = "https://github.com/thomaswmorris/maria-data/raw/master"
 
-_cache_state = {"base": DEFAULT_CACHE_BASE}
+_cache_state = {"base": DEFAULT_CACHE_BASE, "download": False}
 
 # registered offline generators: path prefix -> callable(relative_path, destination)
 _GENERATORS: dict[str, callable] = {}
@@ -33,6 +37,16 @@ def set_cache_dir(directory: str):
 
 def get_cache_dir() -> str:
     return _cache_state["base"]
+
+
+def allow_downloads(flag: bool = True):
+    """Let `fetch` download the reference's real data products. Off by
+    default: the framework then never opens a network connection."""
+    _cache_state["download"] = bool(flag)
+
+
+def downloads_allowed() -> bool:
+    return bool(_cache_state.get("download", False))
 
 
 def register_generator(prefix: str, fn):
@@ -93,7 +107,7 @@ def download_from_url(source_url: str, cache_path: str, chunk_size: int = 2**12,
     maria/io/caching.py:75-114). Returns the local path."""
     os.makedirs(os.path.dirname(cache_path) or ".", exist_ok=True)
     status = cache_status(cache_path, max_age=max_age)
-    if status != "ok" and not _download(source_url, cache_path):
+    if status != "ok" and not (downloads_allowed() and _download(source_url, cache_path)):
         if status == "missing":
             raise FileNotFoundError(f"Could not download {source_url}.")
         logger.warning(f"could not refresh {source_url}; using stale cache")
@@ -125,8 +139,9 @@ def fetch(
 ) -> str:
     """Return a local path for a data product, downloading or generating it.
 
-    Resolution order: fresh cache hit → network download → registered
-    offline generator → stale cache fallback → error. `url` overrides the
+    Resolution order: fresh cache hit → network download (only after
+    `allow_downloads(True)`) → registered offline generator → stale cache
+    fallback → error. `url` overrides the
     constructed `url_base/source_path` (for products that live at a full
     URL, e.g. the Planck PLA map the reference fetches,
     maria/cmb/cmb.py:18,46).
@@ -139,7 +154,7 @@ def fetch(
         return destination
 
     url = url or f"{url_base}/{source_path}"
-    if _download(url, destination):
+    if downloads_allowed() and _download(url, destination):
         logger.info(f"fetched {source_path} from {url_base}")
         return destination
 

@@ -35,7 +35,7 @@ def log_duration(message: str, level: int = logging.DEBUG):
 
 @contextlib.contextmanager
 def profiler(log_dir: str = "/tmp/maria-tpu-profile", host_trace: bool = False):
-    """Capture a device profile of the enclosed block (the TPU-native
+    """Capture a device profile of the enclosed block (the device
     counterpart of the reference's per-phase duration logging, SURVEY §5):
 
         with maria_tpu.io.logging.profiler("/tmp/prof"):

@@ -362,9 +362,9 @@ def get(name: str, fetch_first: bool = True, **kwargs) -> ProjectionMap:
     """Load a named input map (reference: maria/map/__init__.py:58,
     get = load(fetch(name))).
 
-    The real maria-data product is attempted first when the name matches
-    one (network permitting); the synthetic stand-in family is the
-    offline fallback. Accepts both bare names ('M1') and the reference
+    The real maria-data product is fetched first when the name matches
+    one and downloads are allowed (`io.caching.allow_downloads`); the
+    synthetic stand-in family is the default. Accepts both bare names ('M1') and the reference
     docs' repo-path form ('maps/M1.h5')."""
     if name not in REFERENCE_MAP_FILES and not os.path.exists(name):
         stem = os.path.splitext(os.path.basename(name))[0]
@@ -374,7 +374,9 @@ def get(name: str, fetch_first: bool = True, **kwargs) -> ProjectionMap:
         name = "time_evolving_sun"
     source = REFERENCE_MAP_FILES.get(name)
     family = MAP_ALIASES.get(name, name)
-    if source is not None and fetch_first:
+    from ..io.caching import downloads_allowed
+
+    if source is not None and fetch_first and downloads_allowed():
         from ..io.caching import fetch
 
         try:
@@ -408,8 +410,9 @@ def load(path: str = None, filename: str = None, **kwargs) -> Map:
 def read_hdf_map(path: str, **overrides) -> Map:
     """Explicit kwargs override any metadata inferred from the file
     (reference docs usage/inputs/maps)."""
-    import h5py
+    from ..utils import require
 
+    h5py = require("h5py")
     with h5py.File(path, "r") as f:
         data = f["data"][:]
         attrs = dict(f.attrs)

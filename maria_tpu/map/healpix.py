@@ -139,8 +139,9 @@ class HEALPixMap(Map):
         return self._replace(data=jnp.asarray(new_data, dtype=self.dtype))
 
     def to_hdf(self, path: str):
-        import h5py
+        from ..utils import require
 
+        h5py = require("h5py")
         with h5py.File(path, "w") as f:
             f.create_dataset("data", data=np.asarray(self.data))
             f.attrs["stokes"] = self.stokes

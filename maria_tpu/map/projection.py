@@ -3,7 +3,7 @@
 Data shape (stokes, nu, t, eta, xi). The pointing "matrix" is never
 materialized: `sample` is a (bilinear) gather fused into the simulation
 program, and `bin` (used by the mappers) is a segment-sum scatter —
-the TPU-native equivalents of the reference's scipy CSR matrices
+the device equivalents of the reference's scipy CSR matrices
 (projection.py:134-179).
 """
 
@@ -303,8 +303,9 @@ class ProjectionMap(Map):
 
     # -- i/o -------------------------------------------------------------------------
     def to_hdf(self, path: str):
-        import h5py
+        from ..utils import require
 
+        h5py = require("h5py")
         with h5py.File(path, "w") as f:
             f.create_dataset("data", data=np.asarray(self.data))
             f.create_dataset("weight", data=np.asarray(self.weight))

@@ -1,9 +1,10 @@
 """Binned map-making (reference: maria/mappers/bin_mapper.py:24-112).
 
-TPU-native: the sparse pointing matrix of the reference becomes a
-jax.ops.segment_sum scatter over flattened pixel ids — one fused program
-per (TOD, band): offsets -> pixel ids -> weighted scatter of data and
-weights. On a device mesh the per-shard partial maps are psum-reduced
+On the device: the sparse pointing matrix of the reference becomes
+run-compressed one-hot contractions (ops/binning_runs.py) over static
+pixel ids, or a jax.ops.segment_sum scatter where the geometry defeats
+them — one program per (TOD, band): offsets -> pixel ids -> weighted
+binning of data and weights. On a device mesh the per-shard partial maps are psum-reduced
 (see maria_tpu.parallel).
 """
 

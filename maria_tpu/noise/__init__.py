@@ -78,7 +78,7 @@ def generate_noise_with_knee(
     if knee <= 0:
         return jnp.sqrt(sample_rate) * jax.random.normal(key_white, shape, dtype=jnp.float32)
 
-    # synthesize on a TPU-fast FFT length and truncate: the series is
+    # synthesize on a fast FFT length and truncate: the series is
     # stationary, so a slice has the same PSD. The WHITE component fuses
     # into the same spectral draw (white + independent pink filtered by
     # w has the spectrum fs + w^2 — one irfft, no separate (..., n_time)
@@ -87,9 +87,8 @@ def generate_noise_with_knee(
     from ..atmosphere.fourier import good_fft_size
     from ..ops.fft import irfft_matmul, use_matmul_fft
 
-    # XLA's TPU irfft runs ~40x off the HBM roofline at band scale
-    # (~250 ms for (5e4, 12288) on v5e); the MXU matmul DFT is ~3x
-    # faster there. CPU keeps pocketfft.
+    # the platform table (maria_tpu/backend.py) picks the matmul DFT or
+    # jnp.fft
     irfft = irfft_matmul if use_matmul_fft() else (
         lambda z, n, axis=-1: jnp.fft.irfft(z, n=n, axis=axis)
     )
@@ -98,23 +97,10 @@ def generate_noise_with_knee(
     weights = _pink_weights(n_fft, sample_rate, knee, beta)
     cp = corr_prop if basis is not None else 0.0
 
-    from ..ops.pallas_noise import use_pallas_noise
-
-    if len(shape) == 2 and use_pallas_noise():
-        # Pallas kernel: the whole spectrum -> time chain runs in VMEM
-        # per detector tile (one draw write + one output write instead
-        # of ~35 HBM passes; see ops/pallas_noise.py). Same process,
-        # different realization for the same key (reordered draws).
-        from ..ops.pallas_noise import pink_noise_pallas
-
-        w_np = _pink_weights_np(n_fft, sample_rate, knee, beta)
-        c = np.sqrt(sample_rate + (1.0 - cp) * w_np**2) * _spectral_white_scale_np(n_fft)
-        noise = pink_noise_pallas(key_pink, shape[0], n, c, n_fft=n_fft)
-    else:
-        w_det = jnp.sqrt(sample_rate + (1.0 - cp) * weights**2)
-        noise = irfft(
-            w_det * _spectral_white(key_pink, shape[:-1], n_fft), n_fft, axis=-1
-        )[..., :n]
+    w_det = jnp.sqrt(sample_rate + (1.0 - cp) * weights**2)
+    noise = irfft(
+        w_det * _spectral_white(key_pink, shape[:-1], n_fft), n_fft, axis=-1
+    )[..., :n]
     if cp > 0:
         basis = jnp.asarray(basis, dtype=jnp.float32)
         k = basis.shape[-1]

@@ -1,14 +1,12 @@
 """One-matmul banded noise synthesis fused with the TOD accumulate.
 
-The per-band spectral path (generate_noise_with_knee -> pallas kernel or
-irfft) leaves ~4 unavoidable full-size HBM passes AROUND the synthesis:
-the per-band output buffers, the NEP scale, the cross-band concatenate,
-and the add into the running total (measured ~27 ms / 5.5 GB per
-AtLAST-50k x 60 s TOD on v5e against a ~4 ms floor — docs/tpu-design.md
-"Next attacks" #1). This module removes them by reformulating the WHOLE
+The per-band spectral path (generate_noise_with_knee -> irfft) leaves
+~4 full-size memory passes AROUND the synthesis: the per-band output
+buffers, the NEP scale, the cross-band concatenate, and the add into the
+running total. This module removes them by reformulating the WHOLE
 banded noise stage — every band, the NEP scales, the correlated
 focal-plane component, and the final `total = signal * gains + noise`
-accumulate — as ONE MXU matmul with a fused elementwise epilogue:
+accumulate — as ONE matmul with a fused elementwise epilogue:
 
     total = A + V @ B
     A = F * gains                                  (n_det, n)
@@ -29,12 +27,12 @@ where, per band b (bands are CONTIGUOUS row slices):
     (a tiny (k, 2(m+1)) @ (2(m+1), n) matmul).
 
 XLA fuses the draw + spectral weighting into V's producer and the
-`A +` epilogue into the matmul's output, so steady-state HBM traffic is
-one V write/read (bf16), one A read, one total write — and the MXU does
-the rest. The full-size DFT costs ~30x the FLOPs of a split-radix FFT,
-but the stage was HBM-bound, not FLOP-bound: n_det x 2(m+1) x n bf16
-MACs for AtLAST-50k x 60 s is ~4.7 ms of v5e MXU — right at the
-stage's traffic floor, with zero layout ops.
+`A +` epilogue into the matmul's output, so steady-state memory traffic
+is one V write/read (bf16), one A read, one total write. The full-size
+DFT costs ~30x the FLOPs of a split-radix FFT (n_det x 2(m+1) x n bf16
+MACs); it pays only where the stage is bound by memory passes rather
+than by those FLOPs — the `noise_total_matmul` gate of
+maria_tpu/backend.py decides per platform.
 
 Distribution contract: exactly the process of generate_noise_with_knee
 (PSD sample_rate + (1-cp) w^2 detector part + cp-weighted correlated
@@ -43,8 +41,7 @@ tests/test_noise_dft.py). Realizations differ from the other paths for
 the same key (different draw order); the bf16 basis rounds sample
 values by ~0.2% RMS — far below the noise's own realization scatter.
 
-Unlike the pallas kernel this path partitions under shard_map (plain
-jnp) and needs no 128-aligned band blocks.
+It is plain jnp, so it partitions under shard_map.
 
 Reference behavior: maria/noise/generation.py:11-52.
 """
@@ -59,23 +56,6 @@ import jax.numpy as jnp
 import numpy as np
 
 __all__ = ["NoiseBandSpec", "noise_total_matmul", "irfft_cos_sin_basis"]
-
-
-def _use_pallas_draw() -> bool:
-    """Whether the shared-shape V draw runs through the Mosaic
-    hardware-PRNG kernel (ops/pallas_noise.shared_v_pallas). Default on
-    TPU: the threefry bits->normals chain measured ~5 ms of VPU per
-    AtLAST-50k x 60 s realization. Override MARIA_TPU_NOISE_DRAW=
-    pallas|threefry. NOTE: pallas_call does not partition — explicitly
-    det-sharded programs should set threefry."""
-    import os
-
-    mode = os.environ.get("MARIA_TPU_NOISE_DRAW", "").lower()
-    if mode in ("threefry", "0", "off"):
-        return False
-    if mode in ("pallas", "1", "on"):
-        return True
-    return jax.default_backend() == "tpu"
 
 
 @lru_cache(maxsize=16)
@@ -140,9 +120,8 @@ def noise_total_matmul(
     corr_prop / sample_rate — e.g. all 9 AtLAST bands), pass that
     shape as `shared_c` (m+1,) and the per-detector amplitude (1e12 *
     NEP) as `row_scale` (n_det, 1): the draw collapses to ONE
-    whole-axis threefry op (9 per-band draw+scale+concat fusions
-    measured +3.5 ms at AtLAST scale — tools/probe_upsample_vassembly),
-    the column scale is a tiny shared constant, and the NEP lands as a
+    whole-axis threefry op (instead of 9 per-band draw+scale+concat
+    fusions), the column scale is a tiny shared constant, and the NEP lands as a
     row scalar in the matmul's fused epilogue. `corr_cols` must then
     carry sqrt(cp) * basis WITHOUT the NEP factor. The shared-shape
     path draws a single stream keyed by `key` (a different realization
@@ -166,14 +145,9 @@ def noise_total_matmul(
 
     if shared_c is not None:
         n_det = specs[-1].stop
-        if _use_pallas_draw() and basis_dtype == jnp.bfloat16:
-            from ..ops.pallas_noise import shared_v_pallas
-
-            V = shared_v_pallas(key, n_det, shared_c)
-        else:
-            z = jax.random.normal(key, (n_det, 2, m1), dtype=jnp.float32)
-            c = jnp.asarray(np.asarray(shared_c, dtype=np.float32))
-            V = (z * c).reshape(n_det, 2 * m1).astype(basis_dtype)
+        z = jax.random.normal(key, (n_det, 2, m1), dtype=jnp.float32)
+        c = jnp.asarray(np.asarray(shared_c, dtype=np.float32))
+        V = (z * c).reshape(n_det, 2 * m1).astype(basis_dtype)
     else:
         v_parts = []
         for i, sp in enumerate(specs):
@@ -200,8 +174,7 @@ def band_half_spectrum(sample_rate: float, knee: float, beta: float, n_fft: int,
                        corr_prop: float = 0.0, pink_only: bool = False) -> np.ndarray:
     """The (m+1,) half-spectrum amplitude c(f) of the band's noise
     process (white + pink with a knee), INCLUDING the spectral-white
-    draw scale — the same weights the pallas path folds into its
-    kernel constants (noise/__init__._pink_weights_np and
+    draw scale (noise/__init__._pink_weights_np and
     _spectral_white_scale_np are the single source)."""
     from . import _pink_weights_np, _spectral_white_scale_np
 

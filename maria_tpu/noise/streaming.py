@@ -176,8 +176,7 @@ class PinkCascade:
 
         — two MXU matmuls per sub-chunk instead of an associative_scan
         (whose (.., K, n) affine-pair temporaries over log2(n) combine
-        levels made the noise stage traffic-bound: 3.4 of the 6.1 s
-        streamed AtLAST-50k x 600 s run on v5e). Exact same process;
+        levels made the noise stage traffic-bound). Exact same process;
         pinned against the scan path in tests."""
         shape = state.shape[:-1]
         w = jax.random.normal(key, (*shape, n), dtype=jnp.float32)

@@ -1,10 +1,10 @@
 """Map binning kernels.
 
-TPU scatters are slow (~7 ns/sample for jax.ops.segment_sum), so the hot
-binning path exploits the scan geometry the same way the windowed
-sampler does: within a short time chunk, every detector sample falls in
-a small pixel window around the boresight track. Binning then becomes a
-pair of one-hot hat matrices contracted on the MXU per chunk,
+Where scatter-adds are slow, the binning path exploits the scan geometry
+the same way the windowed sampler does: within a short time chunk, every
+detector sample falls in a small pixel window around the boresight
+track. Binning then becomes a pair of one-hot hat matrices contracted
+per chunk,
 
     window[y, x] = sum_{d,t} data[d,t] * 1[iy=oy+y] * 1[ix=ox+x]
                  = einsum('dty,dtx->yx', onehot_y * data, onehot_x)
@@ -136,8 +136,8 @@ def bin_windowed(data, plan: WindowedBinPlan, weights=None, iy=None, ix=None):
         # one-hot hats; out-of-window (incl. padded/off-map) rows vanish
         wY = (ly[..., None] == ky).astype(d.dtype)  # (n_det, chunk, wy)
         wX = (lx[..., None] == kx).astype(d.dtype)  # (n_det, chunk, wx)
-        # full f32: the default TPU matmul precision truncates the data
-        # to bf16, which is visible in binned sums
+        # full f32: a default-precision matmul may truncate the data
+        # (bf16 or TF32), which is visible in binned sums
         window = jnp.einsum(
             "dcy,dcx,mdc->myx", wY, wX, d, precision=jax.lax.Precision.HIGHEST
         )
@@ -188,6 +188,20 @@ class BlockedBinPlan:
             jnp.asarray(self.origins),
             jnp.asarray(self.order),
         )
+
+
+def split_bf16(x):
+    """(hi, lo) bf16 parts of float32 `x` with hi + lo == x to ~2^-16
+    relative. `hi` is x rounded to bf16 by integer ops on its bits (add
+    half an ulp, clear the low 16 bits), so the split survives XLA's
+    excess-precision simplification, which on a GPU folds an
+    f32 -> bf16 -> f32 round trip away and would leave lo == 0.
+    x - hi is exact in float32."""
+    x = x.astype(jnp.float32)
+    bits = jax.lax.bitcast_convert_type(x, jnp.uint32)
+    hi_bits = (bits + jnp.uint32(0x8000)) & jnp.uint32(0xFFFF0000)
+    hi = jax.lax.bitcast_convert_type(hi_bits, jnp.float32)
+    return hi.astype(jnp.bfloat16), (x - hi).astype(jnp.bfloat16)
 
 
 def _hilbert_order(my, mx, order_bits: int = 16):
@@ -463,9 +477,9 @@ def bin_blocked(
     channels share one set of one-hot hats per (block, chunk). Pass the
     plan's `device_args()` as jit arguments for large arrays.
     `precision` sets the contraction precision. Default HIGH (3-pass
-    bf16): measured max error 5.8e-6 vs 5.0e-6 for HIGHEST at 19% less
-    time — both are dominated by f32 accumulation order, while DEFAULT
-    (single-pass) truncates the data to bf16 (~2e-3). Pure jnp; call
+    bf16): max error 5.8e-6 vs 5.0e-6 for HIGHEST — both are dominated
+    by f32 accumulation order, while DEFAULT (single-pass) may truncate
+    the data (bf16 ~2e-3; TF32 on an H100). Pure jnp; call
     under jit."""
     precision = jax.lax.Precision.HIGH if precision is None else precision
     ly = jnp.asarray(plan.ly) if ly is None else ly
@@ -507,8 +521,7 @@ def bin_blocked(
                 wY = (ly[b, :, c][..., None] == ky).astype(jnp.bfloat16)
                 wX = (lx[b, :, c][..., None] == kx).astype(jnp.bfloat16)
                 dt = d[:, b, :, c]
-                d_hi = dt.astype(jnp.bfloat16)
-                d_lo = (dt - d_hi.astype(jnp.float32)).astype(jnp.bfloat16)
+                d_hi, d_lo = split_bf16(dt)
                 win = sum(
                     jnp.einsum(
                         "dcy,dcx,mdc->myx", wY, wX, part,
@@ -575,11 +588,9 @@ class RunLengthBinPlan:
     A scanning detector dwells several consecutive samples in each map
     pixel, so the (huge) per-sample scatter reduces exactly to a
     (much smaller) per-run scatter: run sums come from differences of a
-    per-detector cumulative sum. NOTE: measured on v5e this is only at
-    parity with the raw scatter (~0.97 s vs 1.05 s for a 50k x 3000
-    TOD) because TPU gathers cost as much per element (~14 ns) as
-    scatters — the two boundary gathers eat the 7x scatter-volume win.
-    Kept for backends where gathers outpace scatters.
+    per-detector cumulative sum. Two boundary gathers per run pay for
+    the smaller scatter, so it wins only where gathers are much cheaper
+    per element than scatters.
     """
 
     n_pix: int

@@ -1,13 +1,14 @@
-"""Run-compressed MXU map binning.
+"""Run-compressed one-hot map binning.
 
 A scanning detector dwells several consecutive samples in each map
 pixel (measured on the AtLAST-50k daisy bench scene: <=35 pixel runs
 per 128-sample chunk, <=63 per 256), so the blocked one-hot binning of
-`ops.binning.bin_blocked` wastes MXU K-depth: every *sample* is a row
-of the hat matrices even though runs of them land in the same pixel.
-One one-hot contraction pass costs ~0.17 ns/row on v5e independent of
-window size (output-tile under-utilization cancels the FLOP saving —
-see ops/pallas_binning.py's negative result), so rows are the currency.
+`ops.binning.bin_blocked` wastes contraction depth: every *sample* is a
+row of the hat matrices even though runs of them land in the same
+pixel. A one-hot contraction pass over a small window costs about the
+same per row whatever the window size (the smaller output tile leaves
+the matrix units as under-used as it saves FLOPs), so rows are the
+currency.
 
 This module compresses rows 3-4x by binning *runs* instead of samples:
 
@@ -22,17 +23,16 @@ This module compresses rows 3-4x by binning *runs* instead of samples:
      in-segment cumulative sum of the (mean-shifted) data — run starts
      never need extracting since start_r - 1 = end_{r-1}. The cumsum
      values at the static end indices are pulled out with a one-hot
-     multiply-reduce (fuses; no gathers — TPU gathers cost ~14 ns/elem
-     and would erase the win). The windowed one-hot contraction then
+     multiply-reduce (fuses; no gathers, whose per-element cost would
+     erase the win). The windowed one-hot contraction then
      runs over det_block * S * R rows instead of det_block * chunk.
 
 The extraction multiply-reduce costs O(samples * R) VPU work, so the
 plan splits each chunk into S = chunk/seg extraction SEGMENTS: runs
-never cross a segment boundary (slightly more MXU rows) but R shrinks
-to the per-segment run count (measured on chip: chunk=256 extraction
-at seg=chunk cost as much VPU time as the compression saved on the
-MXU; seg=64 cuts it ~2.7x). The scan/window granularity stays `chunk`
-(fewer scan iterations win — measured).
+never cross a segment boundary (slightly more contraction rows) but R
+shrinks to the per-segment run count (at seg=chunk=256 the extraction
+can cost as much as the compression saves). The scan/window granularity
+stays `chunk` (fewer scan iterations win).
 
 Precision: the data is shifted by its per-(block, chunk) mean before
 the cumsum, so the bf16 MXU pass rounds only the in-chunk RESIDUAL
@@ -61,7 +61,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .binning import _hilbert_order, blockify_ids
+from .binning import _hilbert_order, blockify_ids, split_bf16
 
 __all__ = [
     "RunChunkBinPlan",
@@ -71,15 +71,12 @@ __all__ = [
     "bin_runs_traced",
 ]
 
-# One one-hot contraction pass costs ~0.17 ns/row on v5e INDEPENDENT of
-# window size up to the point where the pass becomes genuinely
-# FLOP-bound: 0.17 ns x 197 bf16-TFLOP/s / 2 FLOP-per-MAC ~ 1.7e4
-# window cells. Below this area rows are the currency (larger chunks
-# win: fewer scan steps at the same total rows — measured at AtLAST
-# scale, 23.7 ms at chunk=256 vs 49.6 at 128); above it the pass pays
-# per-cell and SHRINKING the chunk shrinks the per-chunk pixel window
-# (measured on the ML mapper's 512x512 scene: chunk=64 0.609 ms/TOD vs
-# chunk=256 0.806, windows 184x168 vs 296x280).
+# Window area (cells) below which a one-hot contraction pass costs per
+# ROW, independent of the window: there larger chunks win (fewer scan
+# steps at the same total rows); above it the pass pays per cell and
+# smaller chunks win (a smaller per-chunk pixel window). Not tuned for
+# the H100: the value was derived on the previous accelerator, and
+# which chunk size wins on the card is not measured.
 _ROW_BOUND_AREA = 16384
 
 
@@ -148,7 +145,7 @@ def make_runchunk_bin_plan_on_device(
     `bin_blocked`/`bin_scatter`.
 
     `chunk="auto"` (default) picks the scan/window granularity from the
-    measured MXU cost model: the largest candidate whose windows stay
+    row/cell cost model: the largest candidate whose windows stay
     row-bound (wy*wx <= `_ROW_BOUND_AREA`, where pass time is rows-only
     and fewer scan steps win), else the candidate minimizing total
     row-equivalents n_chunks * S * r_max * max(_ROW_BOUND_AREA, wy*wx)
@@ -315,7 +312,7 @@ def make_runchunk_bin_plan_on_device(
         blockified id arrays live full-size (every derived quantity —
         valid/ly/lx/pix — is computed inside the body on its
         (det_block, chunk) tile; materializing them up front peaked at
-        ~7 full-size buffers and OOM'd AtLAST-50k x 240 s on chip)."""
+        ~7 full-size buffers, too many for AtLAST-50k x 240 s)."""
         iy_b = _blockify(iy)
         ix_b = _blockify(ix)
 
@@ -425,8 +422,8 @@ def bin_runchunk(
     `data_in_plan_order=True` declares that the detector axis already
     follows `plan.order` (e.g. the fused program was built with
     `TODProgram.permute_detectors(plan.order)`), skipping the row-gather
-    relayout — at AtLAST-50k scale the gather was the binning stage's
-    single largest cost (XProf: ~18 ms of a ~24 ms stage). The padded
+    relayout — at AtLAST-50k scale the gather can cost more than the
+    contraction it feeds. The padded
     tail rows (plan.order repeats the last detector) are still excluded
     through the plan's -1 run slots, but the DATA for them must exist:
     with padding the caller keeps the gather (pad_d rows).
@@ -490,8 +487,8 @@ def bin_runchunk(
     # KEEP the (n_ch, rows, time) layout: slicing the time axis of the
     # contiguous array inside the scan is a clean per-chunk DMA, while
     # a 5-D (nb, db, nc, C) view forces XLA to materialize a tiled
-    # relayout of the whole array up front (XProf: ~2 ms at AtLAST-50k
-    # scale — the same cost class as the moveaxis this replaced)
+    # relayout of the whole array up front (the same cost class as a
+    # moveaxis)
 
     ky = jnp.arange(plan.wy, dtype=jnp.int32)
     kx = jnp.arange(plan.wx, dtype=jnp.int32)
@@ -502,9 +499,8 @@ def bin_runchunk(
         # the chunk's data AND count windows are sliced IN-BODY instead
         # of riding the scan xs: moving their chunk axis to the front
         # for xs is a full-size strided relayout XLA materializes up
-        # front, and the wcnt xs-slice+restore fusion alone measured
-        # ~6 ms of the AtLAST-50k binning stage; the time-axis
-        # dynamic_slice reads the synthesis layout directly
+        # front; the time-axis dynamic_slice reads the synthesis layout
+        # directly
         d_c = jax.lax.dynamic_slice_in_dim(d, c * C, C, axis=2)
         d_c = d_c.reshape(n_ch, nb, db, C)
         wcnt_c = jax.lax.dynamic_slice_in_dim(wcnt, c, 1, axis=1)[:, 0]
@@ -529,8 +525,7 @@ def bin_runchunk(
         wY = (ly_c.astype(jnp.int32)[..., None] == ky).astype(jnp.bfloat16)
         wX = (lx_c.astype(jnp.int32)[..., None] == kx).astype(jnp.bfloat16)
         if precision == "hilo":
-            hi = runsum.astype(jnp.bfloat16)
-            lo = (runsum - hi.astype(jnp.float32)).astype(jnp.bfloat16)
+            hi, lo = split_bf16(runsum)
             parts = jnp.concatenate([hi, lo], axis=0)  # hats shared
             win2 = jnp.einsum(
                 "bdsry,bdsrx,mbdsr->mbyx", wY, wX, parts,
@@ -548,9 +543,7 @@ def bin_runchunk(
         # and ROLL it to its origin (origins are clipped to the map, so
         # the roll never wraps), then reduce over blocks. The previous
         # per-block dynamic-update-slice fori_loop was a SEQUENTIAL
-        # nb x nc chain of tiny map updates — XProf measured it at
-        # ~9 ms of the 26 ms AtLAST-50k binning stage (~3 us a step
-        # for 49 x 47 steps); this is one fused pass over
+        # nb x nc chain of tiny map updates; this is one fused pass over
         # (nb, n_y, n_x) per chunk.
         full = jnp.pad(
             win, ((0, 0), (0, 0), (0, plan.n_y - plan.wy), (0, plan.n_x - plan.wx)))
@@ -725,13 +718,11 @@ def bin_runs_traced(
         wY = (r_ly[..., None] == ky).astype(jnp.bfloat16)  # (nb, db, S, R, wy)
         wX = (r_lx[..., None] == kx).astype(jnp.bfloat16)
         if precision == "hilo":
-            hi = runsum.astype(jnp.bfloat16)
-            lo = (runsum - hi.astype(jnp.float32)).astype(jnp.bfloat16)
+            hi, lo = split_bf16(runsum)
             parts = jnp.stack([hi, lo, cnt.astype(jnp.bfloat16)])
         else:
             mc = mu_d[:, :, None, None] * cnt  # (nb, db, S, R) restore weights
-            mc_hi = mc.astype(jnp.bfloat16)
-            mc_lo = (mc - mc_hi.astype(jnp.float32)).astype(jnp.bfloat16)
+            mc_hi, mc_lo = split_bf16(mc)
             parts = jnp.stack(
                 [runsum.astype(jnp.bfloat16), cnt.astype(jnp.bfloat16), mc_hi, mc_lo]
             )
@@ -789,7 +780,7 @@ def project_runs_traced(
     (0 for off-map), the streamed twin of `project_runchunk` for the
     streaming ML mapper, sharing `bin_runs_traced`'s in-scan run
     extraction so P stays two MXU hat passes + a fused run->sample
-    expansion instead of an elementwise gather (~14 ns/elem on TPU).
+    expansion instead of an elementwise gather.
 
     Returns (n_det, n_chunks * chunk) samples in the ORIGINAL detector
     order (trim the time pad yourself). Runs past `r_max` slots produce
@@ -809,9 +800,7 @@ def project_runs_traced(
     oy = jnp.clip(jnp.where(valid_all, iy_b, big).min(axis=(1, 3)), 0, n_y - wy)
     ox = jnp.clip(jnp.where(valid_all, ix_b, big).min(axis=(1, 3)), 0, n_x - wx)
 
-    map_hi = map_img.astype(jnp.bfloat16)
-    map_lo = (map_img - map_hi.astype(jnp.float32)).astype(jnp.bfloat16)
-    maps2 = jnp.stack([map_hi, map_lo])  # (2, n_y, n_x)
+    maps2 = jnp.stack(split_bf16(map_img))  # (2, n_y, n_x)
 
     ky = jnp.arange(wy, dtype=jnp.int32)
     kx = jnp.arange(wx, dtype=jnp.int32)
@@ -884,11 +873,9 @@ def project_runchunk(
     maps[f, iy[d,t], ix[d,t]] (0 for off-map samples), returned in the
     ORIGINAL detector order with the true n_t.
 
-    The static runs turn P into MXU contractions instead of an
-    elementwise gather (TPU gathers cost ~14 ns/elem — the gather was
-    4.86 ms of the ML mapper's 7.4 ms CG step at MUSTANG-2 scale,
-    reference maria/mappers/ml_mapper.py:323-327 does it as a torch
-    sparse matvec): per (det-block, time-chunk), run VALUES are the map
+    The static runs turn P into one-hot contractions instead of an
+    elementwise gather (the reference, maria/mappers/ml_mapper.py:323-327,
+    does it as a torch sparse matvec): per (det-block, time-chunk), run VALUES are the map
     window contracted with the SAME one-hot hats the binning builds
     (two bf16 passes on a hi/lo window split, ~2^-16 relative), and
     samples re-expand from their run values through the membership step
@@ -915,9 +902,7 @@ def project_runchunk(
 
     # hi/lo split once: the bf16 hat passes round each window value to
     # ~2^-16 relative (two bf16 mantissas), matching bin_runchunk("hilo")
-    maps_hi = maps.astype(jnp.bfloat16)
-    maps_lo = (maps - maps_hi.astype(jnp.float32)).astype(jnp.bfloat16)
-    maps2 = jnp.concatenate([maps_hi, maps_lo], axis=0)  # (2 n_fr, n_y, n_x)
+    maps2 = jnp.concatenate(split_bf16(maps), axis=0)  # (2 n_fr, n_y, n_x)
 
     ky = jnp.arange(plan.wy, dtype=jnp.int32)
     kx = jnp.arange(plan.wx, dtype=jnp.int32)
@@ -955,7 +940,11 @@ def project_runchunk(
             (t_iota[:, None] > prev[..., None, :])
             & (t_iota[:, None] <= e32[..., None, :])
         ).astype(jnp.float32)  # (nb, db, S, seg, R)
-        samp = jnp.einsum("bdscr,bfdsr->fbdsc", memb, val)
+        # HIGHEST: `val` carries the full hi+lo value; a default-precision
+        # f32 dot may round it to TF32 (10 mantissa bits), and P must stay
+        # the transpose of bin_runchunk's P^T for CG to converge
+        samp = jnp.einsum("bdscr,bfdsr->fbdsc", memb, val,
+                          precision=jax.lax.Precision.HIGHEST)
         return 0, samp.reshape(n_fr, nb * db, C)
 
     xs = (

@@ -1,17 +1,15 @@
-"""Matmul-formulated DFTs for the MXU.
+"""Matmul-formulated DFTs.
 
-XLA's TPU FFT runs far off the roofline for the large batched 1-D
-transforms the noise synthesis needs: measured on v5e, irfft of
-(50016, 12288) costs ~252 ms while its HBM traffic bound is ~6 ms
-(tools/microbench_tpu.py). A Cooley-Tukey two-factor split turns the
-same transform into two small dense matmuls plus a twiddle multiply —
-MXU work at a few hundred GFLOP, >10x faster at this shape — with the
+Where a platform's FFT runs far off its memory bound for the large
+batched 1-D transforms the noise synthesis needs, a Cooley-Tukey
+two-factor split turns the same transform into two small dense matmuls
+plus a twiddle multiply — a few hundred GFLOP of matrix work — with the
 real inverse built on a half-size complex iDFT via the standard
 even/odd packing. Exact to f32 (tested vs jnp.fft.irfft).
 
-These are drop-in only for sizes whose factors stay MXU-sized; the
-`good_fft_size` grid (odd part <= 9) always factors well. CPU backends
-keep the native FFT (pocketfft beats matmuls there) — see `use_for`.
+These are drop-in only for sizes whose factors stay small; the
+`good_fft_size` grid (odd part <= 9) always factors well. Which platform
+takes them is the `matmul_fft` gate of maria_tpu/backend.py.
 """
 
 from __future__ import annotations
@@ -30,19 +28,19 @@ _SINGLE_MAX = 512
 
 
 def use_matmul_fft() -> bool:
-    """Whether the matmul DFT should replace jnp.fft on this backend.
-
-    Default: yes on TPU (where XLA's FFT is the measured bottleneck),
-    no on CPU/GPU (native FFTs win). Override with MARIA_TPU_FFT=
-    matmul|xla."""
+    """Whether the matmul DFT should replace jnp.fft on this platform
+    (the `matmul_fft` gate of maria_tpu/backend.py). Override with
+    MARIA_TPU_FFT=matmul|xla."""
     import os
+
+    from ..backend import use
 
     mode = os.environ.get("MARIA_TPU_FFT", "").lower()
     if mode == "matmul":
         return True
     if mode == "xla":
         return False
-    return jax.default_backend() == "tpu"
+    return use("matmul_fft")
 
 
 def _best_split(n: int) -> tuple:

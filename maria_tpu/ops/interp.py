@@ -26,8 +26,8 @@ __all__ = [
 def _axis_transform(side):
     """Classify a grid axis: ('uniform', x0, dx) | ('log', logx0, dlog) |
     ('general', side). Uniform and log-uniform axes index arithmetically —
-    searchsorted is a binary search whose every step is a (slow) TPU
-    gather, so avoiding it matters on the hot path."""
+    searchsorted is a binary search whose every step is a gather, so
+    avoiding it matters on the hot path."""
     side = np.asarray(side, dtype=np.float64)
     d = np.diff(side)
     if len(d) == 0:
@@ -167,22 +167,20 @@ def upsample_time_phases(values, ratio: int, n_fine: int, kind: str = "cubic"):
 
     Fine sample j = c * ratio + r interpolates coarse samples around c
     with weights depending only on the phase r — so the whole upsample is
-    `ratio` shifted stencil multiplies (pure VPU work, no gather). This
-    is the TPU-fast path used by the fused program; `upsample_time`
-    handles arbitrary grids.
+    `ratio` shifted stencil multiplies (elementwise work, no gather).
+    This is the path the fused program uses; `upsample_time` handles
+    arbitrary grids.
     """
     values = jnp.asarray(values)
     n_c = values.shape[-1]
 
     # The stencil is a STATIC (taps, ratio) matrix. Phase-MAJOR
     # evaluation: each phase r is a `taps`-term scalar-weighted sum of
-    # the shifted coarse views, stacked on a new minor axis — pure VPU
-    # work whose only materialization is the output. The previous
-    # einsum ("k...c,kr->...cr") was a K=taps, N=ratio dot_general that
-    # XLA put on the MXU with N padded to 128: measured 7.0 ms vs this
-    # form's 1.6 ms for (50004, 600) -> x5 on v5e
-    # (tools/probe_upsample_vassembly.py). A still-earlier broadcast
-    # form materialized a (..., n_c-1, taps, ratio) temp and OOM'd at
+    # the shifted coarse views, stacked on a new minor axis — elementwise
+    # work whose only materialization is the output. An einsum
+    # ("k...c,kr->...cr") would be a K=taps, N=ratio dot_general that a
+    # matrix unit pads to its tile width; a broadcast form would
+    # materialize a (..., n_c-1, taps, ratio) temp that does not fit at
     # AtLAST scale — the per-phase sums here keep temps coarse-sized.
     if kind == "linear" or n_c < 4:
         taps = [values[..., :-1], values[..., 1:]]
@@ -256,12 +254,12 @@ def interp_bilinear_uniform(values, x, y, x0, dx, y0, dy, fill_value=0.0):
 
 
 def interp_bilinear_windowed(values, tx, ty, cx, cy, x0, dx, y0, dy, wx: int, wy: int, chunk: int = None):
-    """Windowed bilinear sampling: gather-free, MXU-formulated.
+    """Windowed bilinear sampling: gather-free, matmul-formulated.
 
     At each (coarse) time step all detectors fall inside a small window
     of the screen around the boresight track (cx, cy). The window is cut
-    with a contiguous dynamic_slice (fast on TPU, unlike scattered
-    gathers), and the bilinear interpolation becomes two small dense
+    with a contiguous dynamic_slice (unlike scattered gathers), and the
+    bilinear interpolation becomes two small dense
     contractions with hat-function weight matrices:
 
         out[d] = w_y[d] @ W @ w_x[d]   (W the (wy, wx) window)
@@ -269,16 +267,13 @@ def interp_bilinear_windowed(values, tx, ty, cx, cy, x0, dx, y0, dy, wx: int, wy
     Points outside the window get zero weight, matching the
     fill_value=0 semantics of interp_bilinear_uniform.
 
-    Measured dead end (v5e, AtLAST-50k geometry, 2026-08-20): rewriting
-    the hats as clamped ramps contracted with a second-differenced
-    window (fewer VPU ops per weight cell, exactly equal output) made
-    this path 18% SLOWER and the group sampler no faster; an XProf trace
-    shows the per-layer scan-body fusions cost a FIXED ~1.6 ns per
-    (sample, layer) regardless of window size, weight form, precision,
-    or chunk — the VPU executes the whole fused weight+contract loop at
-    a per-sample floor, so only reducing the number of (sample, layer)
-    evaluations helps (see the per-layer temporal decimation in
-    atmosphere/sampling.py).
+    Dead end: rewriting the hats as clamped ramps contracted with a
+    second-differenced window (fewer elementwise ops per weight cell,
+    exactly equal output) made this path slower; the per-layer scan-body
+    fusions cost a fixed amount per (sample, layer) regardless of window
+    size, weight form, precision, or chunk, so only reducing the number
+    of (sample, layer) evaluations helps (see the per-layer temporal
+    decimation in atmosphere/sampling.py).
 
     values: (ny, nx); tx/ty: (n_det, n_t); cx/cy: (n_t,). wx/wy are
     static window sizes in cells. Work is chunked over time to bound the
@@ -298,10 +293,9 @@ def interp_bilinear_windowed(values, tx, ty, cx, cy, x0, dx, y0, dy, wx: int, wy
     fy = (ty - y0) / dy - iy0[None, :]
 
     if chunk is None:
-        # bound the weight intermediates to ~256 MB: the scan is
-        # step-overhead-dominated on TPU (~90 us/step measured at
-        # AtLAST scale), so fewer, fatter steps win; 256 MB of f32
-        # weights is comfortably within HBM headroom
+        # bound the weight intermediates to ~256 MB: a scan step has a
+        # fixed overhead, so fewer, fatter steps win; 256 MB of f32
+        # weights is comfortably within device-memory headroom
         chunk = max(1, min(n_t, (1 << 26) // max(n_det * (wx + wy), 1)))
     n_chunks = -(-n_t // chunk)
     pad = n_chunks * chunk - n_t
@@ -370,9 +364,9 @@ def interp_bilinear_grid(values, x, y, x_side, y_side, fill_value=0.0):
 
 # -- gather-free table evaluation -------------------------------------------------
 #
-# TPU gathers cost ~1 ns/element, so bilinear lookups of tiny smooth
-# (pwv, el) tables at 10^7-10^8 sample points are gather-bound (~1 s at
-# AtLAST scale). The hot path is `make_table_eval` below — an EXACT
+# Bilinear lookups of tiny smooth (pwv, el) tables at 10^7-10^8 sample
+# points are gather-bound. The hot path is `make_table_eval` below — an
+# EXACT
 # clamped-ramp reformulation of bilinear interpolation with zero
 # gathers. The Chebyshev pair is a general-purpose smooth-surface
 # alternative for non-tabular use.
@@ -450,9 +444,8 @@ def make_table_eval(x_side, y_side, table):
 
     with a = dT[:,0], b = dT[0,:], m = d(dT) the first/second mixed
     differences — every coefficient a host SCALAR, so evaluation is pure
-    VPU flops (~2 nx ny ops/point). TPU gathers cost ~1 ns/element, so
-    for tiny tables at 10^7-10^8 points this is 15-50x faster than the
-    4-corner-gather bilinear while being numerically identical.
+    elementwise flops (~2 nx ny ops/point) with no gathers, numerically
+    identical to the 4-corner-gather bilinear.
     """
     tab = np.asarray(table, dtype=np.float64)
     nx, ny = tab.shape

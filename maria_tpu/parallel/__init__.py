@@ -1,6 +1,6 @@
 """Multi-chip scaling (no analogue in the reference — see SURVEY.md §2
 "Parallelism & communication": the reference is a single-process CPU
-package; this subsystem is the TPU-native divergence).
+package; this subsystem is the device build's divergence).
 
 The simulation's natural mesh is (det, time): detectors are
 embarrassingly parallel through atmosphere sampling, bandpass
@@ -40,22 +40,10 @@ def create_mesh(
     n_devices: int = None, axis_names=("det", "time"), shape: tuple = None, devices=None
 ) -> Mesh:
     """Build a (det, time) mesh from `devices` (default: the default
-    platform's devices, falling back to forced-host CPU devices when the
-    default platform is too small — e.g. a 1-chip TPU process asked for
-    an 8-device dryrun mesh)."""
+    platform's devices). Asking for more devices than there are is an
+    error; the mesh never borrows devices of another platform."""
     if devices is None:
         devices = jax.devices()
-        if n_devices and len(devices) < n_devices:
-            try:
-                cpu_devices = jax.devices("cpu")
-            except RuntimeError:
-                cpu_devices = ()
-            if len(cpu_devices) >= n_devices:
-                logger.info(
-                    "create_mesh: default platform has %d device(s); using %d CPU devices",
-                    len(devices), n_devices,
-                )
-                devices = cpu_devices
     devices = np.asarray(devices)
     n_devices = n_devices or len(devices)
     if n_devices > len(devices):

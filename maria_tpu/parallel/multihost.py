@@ -1,45 +1,49 @@
 """Multi-host (multi-process) backend scaffolding.
 
-SURVEY.md §2/§5 call for a distributed backend layered the TPU-native
-way: `jax.distributed` for process bring-up, ICI collectives within a
-slice, DCN only across slices — never the reference's MPI/dask layout
-(the reference has no multi-host path at all; its scaling story is
-dask-lazy TODs in one process, maria/tod/tod.py:63).
+SURVEY.md §2/§5 call for a distributed backend: `jax.distributed` for
+process bring-up, the fast interconnect (NVLink between the cards of a
+host) for collectives within a host, the network only across hosts —
+never the reference's MPI/dask layout (the reference has no multi-host
+path at all; its scaling story is dask-lazy TODs in one process,
+maria/tod/tod.py:63).
 
 Design:
 
-- **Axis layout.** The observation mesh is (det, time) within a slice
-  (see parallel/__init__). Across slices/hosts we add an OUTER "dcn"
-  axis used only for embarrassingly parallel work — independent TOD
+- **Axis layout.** The observation mesh is (det, time) within a host
+  (see parallel/__init__). Across hosts we add an OUTER "dcn" axis used
+  only for embarrassingly parallel work — independent TOD
   realizations, plan groups, or observation chunks — so every collective
-  that touches data (the binning psum, halo ppermute) rides ICI, and
-  DCN carries only the final map reduction (one (n_y, n_x) psum per
-  realization batch, ~100 kB: latency-tolerant by construction).
+  that touches data (the binning psum, halo ppermute) stays within a
+  host, and the network carries only the final map reduction (one
+  (n_y, n_x) psum per realization batch, ~100 kB: latency-tolerant by
+  construction).
 - **Per-host loading.** Static per-detector inputs (pointing offsets,
   spectral tables) are built or loaded only for the detector rows a
   host's addressable shards need (`host_local_shard`), so bring-up cost
   and host RSS stay O(n_det / n_hosts).
 - **Degenerate single-process path.** Everything here runs (and is
-  CI-tested) with one process and the virtual CPU mesh; a real pod run
-  only changes the environment, not the code path. The multi-process
+  CI-tested) with one process and the virtual CPU mesh; a real
+  multi-host run only changes the environment, not the code path. The multi-process
   path itself is CI-tested too: tests/test_multihost.py spawns two
   `jax.distributed` CPU processes (coordinator handshake, gloo
   collectives) and checks sharded TOD synthesis + cross-process psum
   binning against single-process execution (multihost_worker.py).
 
-Launch recipe (v5e pod slice, one process per host):
+Launch recipe: one process per host drives all of that host's cards
+(one host needs no initialization at all — `jax.devices()` already
+lists its cards):
 
     # on every host, with the same code + args:
-    MARIA_TPU_MULTIHOST=1 python train_or_sim.py
+    MARIA_TPU_MULTIHOST=1 python my_sim.py
 
     # inside the script:
     from maria_tpu.parallel.multihost import initialize_multihost, create_multihost_mesh
-    initialize_multihost()            # no-op unless MARIA_TPU_MULTIHOST=1
+    initialize_multihost(coordinator_address="host0:1234",
+                         num_processes=n_hosts, process_id=this_host)
     mesh = create_multihost_mesh()    # ("dcn", "det", "time")
 
-On GCE TPU VMs `jax.distributed.initialize()` discovers the coordinator
-from the TPU metadata; elsewhere pass coordinator_address/num_processes/
-process_id explicitly (or set JAX_COORDINATOR_ADDRESS etc.).
+Nothing discovers the cluster: pass coordinator_address, num_processes
+and process_id explicitly.
 """
 
 from __future__ import annotations

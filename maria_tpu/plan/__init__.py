@@ -5,7 +5,7 @@ from __future__ import annotations
 import glob
 import os
 
-from ..io import read_yaml
+from ..io import read_json
 from .patterns import SCAN_PATTERNS, all_patterns, get_scan_pattern_generator  # noqa: F401
 from .plan import Plan, PlanList  # noqa: F401
 from .planner import Planner  # noqa: F401
@@ -13,8 +13,8 @@ from .planner import Planner  # noqa: F401
 here = os.path.dirname(__file__)
 
 PLAN_CONFIGS = {}
-for path in sorted(glob.glob(f"{here}/configs/*.yml")):
-    PLAN_CONFIGS.update(read_yaml(path))
+for path in sorted(glob.glob(f"{here}/configs/*.json")):
+    PLAN_CONFIGS.update(read_json(path))
 
 all_plans = sorted(PLAN_CONFIGS)
 
@@ -78,11 +78,17 @@ def validate_pointing_kwargs(kwargs: dict):
 
 
 def _build_plan_data():
-    import pandas as pd
+    from ..utils import require
+
+    pd = require("pandas")
 
     return pd.DataFrame(PLAN_CONFIGS).T.sort_index()
 
 
-# reference parity: browsable tables / lowercase registry aliases
-plan_data = _build_plan_data()
+# reference parity: browsable tables / lowercase registry aliases;
+# a DataFrame view, built on first use since pandas is optional
+def __getattr__(name):
+    if name == "plan_data":
+        return _build_plan_data()
+    raise AttributeError(name)
 from .patterns import SCAN_PATTERNS as scan_patterns  # noqa: E402, F401

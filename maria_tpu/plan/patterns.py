@@ -12,7 +12,7 @@ tolerance) — are the reference's published scan trajectories
 switching frameworks must get the *same* boresight tracks from the same
 named plans, so the formulas are reproduced here deliberately rather
 than re-derived. Everything downstream of these host-side generators
-(coordinates, TOD synthesis) is an independent TPU-native design.
+(coordinates, TOD synthesis) is an independent on-device design.
 """
 
 from __future__ import annotations

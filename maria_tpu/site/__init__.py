@@ -5,7 +5,7 @@ from __future__ import annotations
 from ..coords.earth import EarthLocation
 from ..errors import InvalidRegionError, InvalidSiteError
 from ..units import Quantity
-from .regions import REGIONS, all_regions
+from .regions import REGIONS, all_regions, region_entry
 
 __all__ = [
     "Site",
@@ -16,7 +16,6 @@ __all__ = [
     "get_site_config",
     "get_location",
     "get_height_map",
-    "site_data",
     "InvalidRegionError",
     "InvalidSiteError",
 ]
@@ -55,12 +54,14 @@ all_sites = sorted(SITE_CONFIGS)
 
 
 def _build_site_data():
-    """DataFrame of all named sites (reference: maria/site/__init__.py:30)."""
-    import pandas as pd
+    """DataFrame of all named sites (reference: maria/site/__init__.py:30);
+    needs the optional pandas."""
+    from ..utils import require
 
+    pd = require("pandas")
     rows = {}
     for name, cfg in SITE_CONFIGS.items():
-        entry = REGIONS.loc[cfg["region"]]
+        entry = region_entry(cfg["region"])
         rows[name] = {
             "description": cfg.get("description", ""),
             "region": cfg["region"],
@@ -71,7 +72,10 @@ def _build_site_data():
     return pd.DataFrame(rows).T.sort_values("region")
 
 
-site_data = _build_site_data()
+def __getattr__(name):
+    if name == "site_data":
+        return _build_site_data()
+    raise AttributeError(name)
 
 
 class Site:
@@ -94,7 +98,7 @@ class Site:
         self.region = region
         self.description = description
         self.documentation = documentation
-        entry = REGIONS.loc[region]
+        entry = region_entry(region)
         self.latitude = Quantity(latitude if latitude is not None else entry.latitude, "deg")
         self.longitude = Quantity(longitude if longitude is not None else entry.longitude, "deg")
         self.altitude = Quantity(altitude if altitude is not None else entry.altitude, "m")
@@ -188,7 +192,6 @@ def _generate_height_map(source_path: str, destination: str):
     cataloged observing regions (scaled to their true altitudes) over a
     low-lying land background; good enough for the site world-map plot,
     which is the only consumer."""
-    import h5py
     import numpy as np
 
     lat = np.linspace(90, -90, 361)
@@ -204,22 +207,24 @@ def _generate_height_map(source_path: str, destination: str):
         d2 = (LAT - float(entry.latitude)) ** 2 + (LON - float(entry.longitude)) ** 2
         d2_min = np.minimum(d2_min, d2)
     data = np.where(d2_min < 40.0**2, np.clip(height / 32, 0, 254).astype(np.uint16), np.uint16(255))
-    with h5py.File(destination, "w") as f:
-        f.create_dataset("data", data=data)
+    import os
+    import tempfile
+
+    with tempfile.NamedTemporaryFile(dir=os.path.dirname(destination) or ".", delete=False) as f:
+        np.save(f, data)
+    os.replace(f.name, destination)
 
 
 def get_height_map():
     """Global terrain height in meters, NaN over ocean (reference
     maria/site/site.py:33-36 fetches world_heightmap.h5 from
-    maria-data; offline we synthesize one from the region catalog)."""
-    import h5py
+    maria-data; we synthesize one from the region catalog)."""
     import numpy as np
 
     from ..io.caching import fetch, register_generator
 
     register_generator("world_heightmap", _generate_height_map)
-    with h5py.File(fetch("world_heightmap.h5"), "r") as f:
-        height_map = f["data"][:].astype(np.float64)
+    height_map = np.load(fetch("world_heightmap.npy")).astype(np.float64)
     return np.where(height_map < 255, 32 * height_map, np.nan)
 
 # columns shown in site/region tables (reference: site/__init__.py:22, site/site.py:20)

@@ -7,7 +7,9 @@ climatological median zenith PWV used by the offline weather generator
 
 from __future__ import annotations
 
-import pandas as pd
+from types import SimpleNamespace
+
+from ..utils.table import Table
 
 _REGION_ROWS = [
     # name, location, country, lat, lon, alt, min_alt, max_alt, utc_offset_hr, pwv_scale_mm
@@ -38,12 +40,18 @@ _REGION_ROWS = [
     ("thule", "Thule Air Base", "Greenland", 76.535, -68.686, 77, 0, 500, -4.0, 6.0),
 ]
 
-REGIONS = pd.DataFrame(
-    _REGION_ROWS,
-    columns=[
-        "name", "location", "country", "latitude", "longitude",
-        "altitude", "min_altitude", "max_altitude", "utc_offset_hr", "pwv_scale_mm",
-    ],
-).set_index("name")
+_REGION_COLUMNS = [
+    "name", "location", "country", "latitude", "longitude",
+    "altitude", "min_altitude", "max_altitude", "utc_offset_hr", "pwv_scale_mm",
+]
 
-all_regions = list(REGIONS.index)
+REGIONS = Table({col: [row[i] for row in _REGION_ROWS] for i, col in enumerate(_REGION_COLUMNS)})
+
+all_regions = [str(name) for name in REGIONS.name]
+
+
+
+def region_entry(region: str) -> SimpleNamespace:
+    """One region's row, with its columns as attributes."""
+    i = all_regions.index(region)
+    return SimpleNamespace(**{col: REGIONS[col][i] for col in REGIONS.columns})

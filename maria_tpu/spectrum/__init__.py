@@ -10,14 +10,14 @@ from __future__ import annotations
 
 import logging
 import os
+import tempfile
 
-import h5py
 import numpy as np
 
 from ..errors import InvalidRegionError
 from ..io import fetch, register_generator
 from ..ops import RegularGridInterpolator
-from ..site.regions import REGIONS, all_regions
+from ..site.regions import all_regions, region_entry
 from ..units import Quantity
 from . import synth
 
@@ -31,14 +31,14 @@ def _generate_spectrum_file(source_path: str, destination: str):
     region = os.path.splitext(os.path.basename(source_path))[0]
     if region not in all_regions:
         raise InvalidRegionError(region, valid=all_regions)
-    altitude = float(REGIONS.loc[region, "altitude"])
+    altitude = float(region_entry(region).altitude)
     logger.info(f"Generating synthetic atmospheric spectrum for region '{region}' (~10 s, cached)...")
     grids = synth.generate_spectrum_grids(base_altitude_m=altitude)
-    tmp = destination + ".tmp"
-    with h5py.File(tmp, "w") as f:
-        for key, value in grids.items():
-            f.create_dataset(key, data=value, compression="gzip" if np.ndim(value) > 1 else None)
-    os.replace(tmp, destination)
+    # a private temporary file, then an atomic rename: concurrent
+    # processes generating the same region never see a partial file
+    with tempfile.NamedTemporaryFile(dir=os.path.dirname(destination), suffix=".npz", delete=False) as f:
+        np.savez_compressed(f, **grids)
+    os.replace(f.name, destination)
 
 
 register_generator("atmosphere/spectra/synthetic/", _generate_spectrum_file)
@@ -52,16 +52,16 @@ class AtmosphericSpectrum:
         if region not in all_regions:
             raise InvalidRegionError(region, valid=all_regions)
         self.region = region
-        self.altitude = altitude or float(REGIONS.loc[region, "altitude"])
+        self.altitude = altitude or float(region_entry(region).altitude)
         self.source = source
 
         self.cache_path = fetch(
-            f"atmosphere/spectra/{source}/{region}.h5",
+            f"atmosphere/spectra/{source}/{region}.npz",
             max_age=365 * 86400,
             refresh=refresh_cache,
         )
 
-        with h5py.File(self.cache_path, "r") as f:
+        with np.load(self.cache_path) as f:
             self.side_base_temperature = f["side_base_temperature_K"][:].astype(float)
             self.side_zenith_pwv = f["side_zenith_pwv_mm"][:].astype(float)
             self.side_elevation = f["side_elevation_rad"][:].astype(float)

@@ -302,22 +302,10 @@ def parse_units(units: str | Unit) -> Unit:
 UnitError = InvalidUnitsError
 
 
-def _units_table():
-    import pandas as pd
-
-    rows = {}
-    for name, entry in UNITS.items():
-        rows[name] = {
-            "units": name,
-            "factor": entry["factor"],
-            "physical_quantity": entry["quantity"],
-            "prefixable": entry.get("prefixable", True),
-        }
-    return pd.DataFrame(rows).T
-
-
 def _quantity_dimension_vectors():
-    import pandas as pd
+    from ..utils import require
+
+    pd = require("pandas")
 
     vecs = {}
     for entry in UNITS.values():
@@ -328,4 +316,10 @@ def _quantity_dimension_vectors():
 
 
 QUANTITIES = sorted({e["quantity"] for e in UNITS.values() if e["quantity"]})
-QUANTITY_DIMENSION_VECTORS = _quantity_dimension_vectors()
+
+
+def __getattr__(name):
+    # a DataFrame view: built on first use, since pandas is optional
+    if name == "QUANTITY_DIMENSION_VECTORS":
+        return _quantity_dimension_vectors()
+    raise AttributeError(name)

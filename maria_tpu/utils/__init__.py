@@ -20,6 +20,7 @@ from .rotations import (  # noqa: F401
 
 __all__ = [
     "compute_diameter",
+    "require",
     "get_utc_day_hour",
     "get_utc_year_day",
     "grouper",
@@ -32,6 +33,20 @@ __all__ = [
     "rotation_matrix_3d",
     "principal_angle_2d",
 ]
+
+
+def require(module: str, package: str = None):
+    """Import an optional dependency, or raise an ImportError that names
+    the package to install. The simulation path needs none of them."""
+    import importlib
+
+    try:
+        return importlib.import_module(module)
+    except ImportError as e:
+        raise ImportError(
+            f"this feature needs the optional package '{package or module}' "
+            f"(pip install {package or module}, or maria_tpu[extras])"
+        ) from e
 
 
 def compute_diameter(points, lazy=False, MAX_SAMPLE_SIZE: int = 10000) -> float:

@@ -1,7 +1,7 @@
 """Linear-algebra helpers: pointing-matrix ingredients, PSD inverse,
 spatial noise basis.
 
-The pointing "matrix" never materializes on TPU: sampling a map is a
+The pointing "matrix" never materializes on the device: sampling a map is a
 bilinear gather and binning a TOD is a segment-sum scatter, both expressed
 here as (pixel index, weight) pairs over a Cartesian product of grids
 (reference: maria/utils/linalg.py:9-58 builds the same ingredients to feed

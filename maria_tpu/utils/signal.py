@@ -3,7 +3,7 @@
 SVD decomposition, B-spline bases and frequency-domain filters
 (reference: maria/utils/signal/__init__.py and signal/filters.py). The
 filters here are FFT brick-wall-with-rolloff transfer functions applied
-in jnp — a TPU-friendlier equivalent of the reference's scipy Bessel
+in jnp — an accelerator-friendly equivalent of the reference's scipy Bessel
 IIR filtfilt (same passbands, linear phase by construction).
 """
 
@@ -176,7 +176,7 @@ def grouper(iterable, min_length: int = 1, max_length: float = np.inf, overlap: 
 def bessel_lowpass(data, fc, sample_rate, order: int = 1, axis: int = -1):
     """Causal Bessel IIR low-pass, matching the reference's filter family
     exactly (reference signal/filters.py:49-57). The FFT filters below
-    are the TPU-friendly default; this is for users comparing against
+    are the accelerator-friendly default; this is for users comparing against
     reference pipelines bit-for-bit."""
     sos = sp.signal.bessel(2 * (order + 1), 2 * fc / sample_rate, analog=False, btype="low", output="sos")
     return sp.signal.sosfilt(sos, data, axis=axis)

@@ -18,14 +18,14 @@ import zlib
 import time as _time
 
 import numpy as np
-import pandas as pd
 import scipy as sp
 
 from ..constants import g
 from ..errors import InvalidRegionError
-from ..site.regions import REGIONS, all_regions
+from ..site.regions import all_regions, region_entry
 from ..units import Quantity
 from ..utils import get_utc_day_hour, get_utc_year_day
+from ..utils.table import Table
 
 logger = logging.getLogger("maria_tpu")
 
@@ -108,7 +108,7 @@ class Weather:
             raise InvalidRegionError(region, valid=all_regions)
 
         self.region = region
-        self.entry = REGIONS.loc[region]
+        self.entry = region_entry(region)
         self.base_altitude = float(altitude if altitude is not None else self.entry.altitude)
         self.quantiles = dict(quantiles)
         self.override = dict(override)
@@ -228,13 +228,13 @@ class Weather:
     def wind_bearing(self):
         return np.arctan2(-self.wind_east, self.wind_north) % (2 * np.pi)
 
-    def layers(self) -> pd.DataFrame:
-        df = pd.DataFrame({k: v for k, v in self.data.items() if np.ndim(v)})
+    def layers(self) -> Table:
+        df = Table({k: v for k, v in self.data.items() if np.ndim(v)})
         df.insert(0, "altitude", self.altitude)
-        df = df.loc[df.altitude > self.base_altitude].reset_index(drop=True)
+        df = df.loc[df.altitude > self.base_altitude]
         df["absolute_humidity"] = relative_to_absolute_humidity(df.temperature, df.humidity)
 
-        h = df.altitude.values
+        h = df.altitude
         h_bins = np.array([self.base_altitude, *(h[:-1] + h[1:]) / 2, h[-1] + 100])
         total_water = np.empty(len(df))
         for i, (h1, h2) in enumerate(zip(h_bins[:-1], h_bins[1:])):

@@ -25,7 +25,7 @@ the environment BEFORE the interpreter starts. Each process:
    and compares the replicated map against a host bincount.
 
 The reference has no multi-process path at all (SURVEY.md §2); this is
-the TPU-native distributed backend actually executing across process
+the distributed backend actually executing across process
 boundaries, not the degenerate n_proc=1 codepath.
 """
 

@@ -207,11 +207,11 @@ def test_fused_group_sampler_equals_per_layer_path():
 
 
 def test_group_sampler_bf16_close_to_f32():
-    """The bf16 hat-einsum path (default on TPU: halves the dominant
-    sampler HBM traffic) must stay within ~2^-7 of the f32 path on a
-    unit-variance stack. On CPU XLA promotes bf16 dots to f32 so the
-    paths agree exactly; the tolerance is sized for real bf16 MXU
-    passes so the same test is meaningful on-chip."""
+    """The opt-in bf16 hat-einsum path (halves the sampler's hat
+    traffic) must stay within ~2^-7 of the f32 path on a unit-variance
+    stack. On CPU XLA promotes bf16 dots to f32 so the paths agree
+    exactly; the tolerance is sized for real bf16 matrix-unit passes so
+    the same test is meaningful on an accelerator."""
     from maria_tpu.atmosphere.atmosphere import ScreenGroup
     from maria_tpu.atmosphere.sampling import _sample_group_windowed
 

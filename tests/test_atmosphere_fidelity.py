@@ -206,8 +206,8 @@ def test_ar_screen_structure_function_matches_analytic():
     points, so D(r) matches the analytic spectral integral on a
     footprint-sized grid — the round-4 'AR shares the footprint-grid
     deficit' parity note was wrong (the FFT deficit was PERIODICITY,
-    which the AR never had). Measured here at >=90% recovery, retiring
-    docs/tpu-design.md attack #7.
+    which the AR never had). Measured here at >=90% recovery
+    (docs/design.md, "The 3-D atmosphere's screens").
 
     Reference behavior: maria/atmosphere/process.py:19-209 — we beat
     its approximation class (finite lookback) rather than match it."""

@@ -208,54 +208,6 @@ def test_blocked_window_not_inflated_by_single_axis_offmap():
     np.testing.assert_allclose(m.ravel(), ref, atol=1e-4 * max(1.0, np.abs(ref).max()))
 
 
-def test_pallas_kernel_matches_scatter_interpret():
-    """The Pallas VMEM-hats kernel (a documented negative perf result,
-    ops/pallas_binning.py) must still be numerically correct; run in
-    interpreter mode so the test works on CPU."""
-    from maria_tpu.ops.binning import make_blocked_bin_plan
-    from maria_tpu.ops.pallas_binning import bin_blocked_pallas
-
-    rng = np.random.default_rng(0)
-    n_det, n_t, n_map = 130, 300, 64
-    det_y = rng.uniform(5, 58, n_det)
-    det_x = rng.uniform(5, 58, n_det)
-    t = np.arange(n_t) / 50
-    iy = np.clip((det_y[:, None] + 4 * np.sin(t)[None]).astype(np.int32), 0, n_map - 1)
-    ix = np.clip((det_x[:, None] + 4 * np.cos(t)[None]).astype(np.int32), 0, n_map - 1)
-    iy[3, 5:9] = -1
-    ix[3, 5:9] = -1
-    plan = make_blocked_bin_plan(iy, ix, n_map, n_map, chunk=64, det_block=32)
-    data = rng.standard_normal(iy.shape).astype(np.float32)
-    out = np.asarray(bin_blocked_pallas(jnp.asarray(data), plan, interpret=True))
-    good = (iy.ravel() >= 0) & (ix.ravel() >= 0)
-    ref = np.zeros(n_map * n_map)
-    np.add.at(ref, (iy.astype(np.int64) * n_map + ix).ravel()[good], data.ravel()[good])
-    # bf16 hi/lo split: exact to ~1e-7 relative
-    np.testing.assert_allclose(out.ravel(), ref, atol=1e-4 * max(1.0, np.abs(ref).max()))
-
-
-def test_pallas_kernel_covers_ragged_row_counts():
-    """Tail row-slices must not be dropped when n_rows isn't a multiple
-    of 32 (det_block rounds to ceil(n_det/8)*8, so ragged counts are the
-    common case)."""
-    from maria_tpu.ops.binning import make_blocked_bin_plan
-    from maria_tpu.ops.pallas_binning import bin_blocked_pallas
-
-    rng = np.random.default_rng(31)
-    n_det, n_t, n_map = 40, 128, 64  # det_block=40, chunk=128 -> n_rows=40
-    det_y = rng.uniform(10, 50, n_det)
-    det_x = rng.uniform(10, 50, n_det)
-    iy = np.clip((det_y[:, None] + np.zeros(n_t)).astype(np.int32), 0, n_map - 1)
-    ix = np.clip((det_x[:, None] + np.zeros(n_t)).astype(np.int32), 0, n_map - 1)
-    plan = make_blocked_bin_plan(iy, ix, n_map, n_map, chunk=128, det_block=64)
-    assert plan is not None and (plan.det_block * plan.chunk) // 128 % 32 != 0
-    data = rng.standard_normal(iy.shape).astype(np.float32)
-    out = np.asarray(bin_blocked_pallas(jnp.asarray(data), plan, interpret=True))
-    ref = np.zeros(n_map * n_map)
-    np.add.at(ref, (iy.astype(np.int64) * n_map + ix).ravel(), data.ravel())
-    np.testing.assert_allclose(out.ravel(), ref, atol=1e-4 * max(1.0, np.abs(ref).max()))
-
-
 def test_blocked_hilo_precision_matches_f64():
     """precision='hilo' (bf16 one-hot hats + hi/lo split data, two MXU
     passes) must track the f64 scatter sum at least as tightly as the

@@ -80,8 +80,8 @@ def test_cmb_sim_with_atmosphere_transmission():
 
 
 def test_get_cmb_fetch_chain(tmp_path, monkeypatch):
-    """cmb='planck' goes through the full fetch chain: network attempt,
-    then the registered offline generator writes a healpy-style FITS
+    """cmb='planck' goes through the full fetch chain: no download
+    (downloads are opt-in), then the registered offline generator writes a healpy-style FITS
     bintable that the reader ingests (VERDICT round-1 item #4)."""
     from maria_tpu.cmb import get_cmb
     from maria_tpu.io import caching
@@ -120,16 +120,14 @@ def test_nest_ring_reorder_roundtrip():
 def test_get_cmb_real_download(tmp_path, monkeypatch):
     """With real egress, fetch should pull the actual Planck PLA map
     (reference pytest.ini 'internet' tier)."""
-    import requests
+    import os
 
-    from maria_tpu.cmb import PLANCK_CMB_URL, get_cmb
+    from maria_tpu.cmb import get_cmb
     from maria_tpu.io import caching
 
-    try:
-        requests.head("https://pla.esac.esa.int", timeout=5)
-    except Exception:
-        pytest.skip("no network")
-    monkeypatch.setattr(caching, "_cache_state", {"base": str(tmp_path)})
+    if os.environ.get("MARIA_TPU_INTERNET") != "1":
+        pytest.skip("network tests run only with MARIA_TPU_INTERNET=1")
+    monkeypatch.setattr(caching, "_cache_state", {"base": str(tmp_path), "download": True})
     cmb = get_cmb()
     assert np.isnan(np.asarray(cmb.data[0, 0, 0])).any()  # masked pixels
 

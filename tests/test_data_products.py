@@ -20,7 +20,7 @@ def test_every_data_product_class_resolves(tmp_path, monkeypatch):
     t = np.asarray(spec.transmission(nu=np.array([150e9]), pwv=1.0,
                                      base_temperature=270.0, elevation=np.radians(60)))
     assert 0 < float(t.ravel()[0]) <= 1.0
-    assert any(p.name.endswith(".h5") for p in (tmp_path / "atmosphere").rglob("*")), (
+    assert any(p.name.endswith(".npz") for p in (tmp_path / "atmosphere").rglob("*")), (
         "spectra did not go through the cache"
     )
 

@@ -47,8 +47,8 @@ def test_polarized_map_sampling():
     d = np.asarray(tod.signal)
     gamma = tod.dets.gamma
     # pair A/B detectors share base_det_index
-    base = tod.dets.dets.base_det_index.values
-    pol = tod.dets.dets.pol_label.values
+    base = tod.dets.dets.base_det_index
+    pol = tod.dets.dets.pol_label
     for b in np.unique(base)[:5]:
         a_sig = d[(base == b) & (pol == "A")].mean()
         b_sig = d[(base == b) & (pol == "B")].mean()
@@ -312,8 +312,8 @@ def test_polarized_cmb_through_detector_pairs():
     )
     tod = sim.run(units="pW")[0]
     d = np.asarray(tod.data["cmb"])
-    base = tod.dets.dets.base_det_index.values
-    pol = tod.dets.dets.pol_label.values
+    base = tod.dets.dets.base_det_index
+    pol = tod.dets.dets.pol_label
     diffs = []
     for b in np.unique(base):
         a_sig = d[(base == b) & (pol == "A")][0]

@@ -1,6 +1,6 @@
-"""The MXU matmul DFT (ops/fft.py) must be numerically interchangeable
-with jnp.fft — it replaces XLA's FFT in the TPU noise path (measured
-~3x faster at AtLAST band scale, tools/microbench_tpu.py)."""
+"""The matmul DFT (ops/fft.py) must be numerically interchangeable with
+jnp.fft — it replaces XLA's FFT in the noise path wherever the
+`matmul_fft` gate of maria_tpu/backend.py takes it."""
 
 import jax
 import jax.numpy as jnp

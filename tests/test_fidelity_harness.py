@@ -11,9 +11,10 @@ import os
 import subprocess
 import sys
 
-import h5py
 import numpy as np
 import pytest
+
+h5py = pytest.importorskip("h5py")
 
 TOOL = os.path.join(os.path.dirname(__file__), "..", "tools", "validate_against_reference_data.py")
 
@@ -28,7 +29,6 @@ def _load_tool():
 def test_tool_runs_offline_and_skips():
     proc = subprocess.run(
         [sys.executable, TOOL, "chajnantor"], capture_output=True, text=True, timeout=600,
-        env={**os.environ, "MARIA_TPU_OFFLINE": "1"},
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
@@ -131,14 +131,11 @@ def test_cmb_parser_against_fake_csv(tmp_path, monkeypatch):
 def test_fidelity_against_real_data():
     """With real egress: the synthetic spectra must sit within 30% of the
     am grids in every band, and the CMB TT spectrum within 25% rms."""
-    import requests
-
-    try:
-        requests.head("https://github.com", timeout=5)
-    except Exception:
-        pytest.skip("no network")
+    if os.environ.get("MARIA_TPU_INTERNET") != "1":
+        pytest.skip("network tests run only with MARIA_TPU_INTERNET=1")
     proc = subprocess.run(
-        [sys.executable, TOOL, "chajnantor"], capture_output=True, text=True, timeout=1200
+        [sys.executable, TOOL, "--download", "chajnantor"],
+        capture_output=True, text=True, timeout=1200,
     )
     lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
     spec = next(ln for ln in lines if ln.get("comparison") == "spectrum")

@@ -191,18 +191,3 @@ def test_shared_shape_row_scale_path():
     y = np.asarray(noise_total_matmul(jax.random.key(21), 0.0, specs, n=n, n_fft=n_fft,
                                       basis_dtype=jnp.float32))
     assert abs(x[:64].std() / y[:64].std() - 1) < 0.05
-
-
-def test_pallas_draw_gate(monkeypatch):
-    """The Mosaic-PRNG V draw is TPU-only and env-overridable; the
-    threefry path stays the CPU/sharded fallback (validated on-chip in
-    tools/probe_pallas_v.py: moments, vmap==stacked exact, PSD ratio
-    1.0007 vs threefry)."""
-    from maria_tpu.noise.dft import _use_pallas_draw
-
-    monkeypatch.delenv("MARIA_TPU_NOISE_DRAW", raising=False)
-    assert _use_pallas_draw() == (jax.default_backend() == "tpu")
-    monkeypatch.setenv("MARIA_TPU_NOISE_DRAW", "threefry")
-    assert not _use_pallas_draw()
-    monkeypatch.setenv("MARIA_TPU_NOISE_DRAW", "pallas")
-    assert _use_pallas_draw()

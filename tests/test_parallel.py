@@ -63,7 +63,7 @@ def test_dryrun_entrypoint():
 
 
 def test_dryrun_gate_mixed_platform(monkeypatch):
-    """Round-1 regression: with a 1-device default platform (TPU) plus 8
+    """With a 1-device default platform (an accelerator) plus 8
     forced host CPU devices, the dryrun must NOT run inline (scene setup
     would land on the default platform) — it must re-exec a subprocess."""
     import subprocess
@@ -90,8 +90,9 @@ def test_dryrun_gate_mixed_platform(monkeypatch):
 
 
 def test_create_mesh_falls_back_to_cpu_devices(monkeypatch):
-    """create_mesh must not draw from a too-small default platform when
-    enough forced-host CPU devices exist (round-1 driver failure)."""
+    """A default platform with too few devices is an error: create_mesh
+    never borrows the CPU's devices for a mesh the caller meant for the
+    accelerator, even when enough forced-host CPU devices exist."""
     import maria_tpu.parallel as par
 
     real_devices = jax.devices
@@ -102,9 +103,10 @@ def test_create_mesh_falls_back_to_cpu_devices(monkeypatch):
         return real_devices(platform)
 
     monkeypatch.setattr(par.jax, "devices", fake_devices)
-    mesh = create_mesh(8)
+    with pytest.raises(ValueError, match="Requested 8 devices but only 1"):
+        create_mesh(8)
+    mesh = create_mesh(8, devices=real_devices("cpu"))
     assert mesh.devices.size == 8
-    assert all(d.platform == "cpu" for d in mesh.devices.flat)
 
 
 def test_entry_compiles():

@@ -1,14 +1,14 @@
 """Plotting surface smoke tests (reference: maria/plotting/)."""
 
-import matplotlib
-
-matplotlib.use("Agg")
-
-import matplotlib.pyplot as plt
 import numpy as np
 import pytest
 
-import maria_tpu
+matplotlib = pytest.importorskip("matplotlib")
+matplotlib.use("Agg")
+
+import matplotlib.pyplot as plt  # noqa: E402
+
+import maria_tpu  # noqa: E402
 
 
 @pytest.fixture(scope="module")

@@ -171,10 +171,10 @@ def test_healpix_smooth_iqu():
 
 
 def test_full_iqu_synthesis_wall_time():
-    """The VERDICT round-1 perf criterion (generate_cmb at scale in
-    seconds, not minutes): full IQU synthesis at nside=256 must be
-    seconds-scale even on one CPU core (the native kernels; the device
-    scan handles TPU). Logged so rounds can track the number."""
+    """generate_cmb at scale in seconds, not minutes: full IQU synthesis
+    at nside=256 must be seconds-scale even on one CPU core (the native
+    kernels; the device scan is the fallback). Logged so the number
+    can be tracked."""
     import logging
     import time
 
